@@ -13,16 +13,22 @@ non-zero before the last line:
    1/1024, 7 GiB dense rows, heavy bucket 512, K2 margin 32), pinned on the
    batch-512 envelope.
 3. kernels: each kernel against its plain PyTorch version on operands of a
-   real batch-512 plan (K2/K3 bit-exact; K1 cnt bit-exact, H and smax within
-   rtol 1e-6 because the fp32 sums run in another order than cuBLAS's), with
+   real batch-512 plan (K2/K3/K4 bit-exact; K1 cnt bit-exact, H and
+   smax within rtol 1e-6 because the fp32 sums run in another order than
+   cuBLAS's; K5 cnt bit-exact, totals and smax within rtol 2e-6), with
    median times beside the plain versions' and the measured relative error
    of fast (one-pass bf16) H against exact H.
-4. main path: launch counters reset, then batch 512 / k 10 through
-   search_batch_async/search_batch_gather under (a) the guarded fast launch,
-   (b) fast_heavy off (compact exact) and (c) a forced guard trip that
-   relaunches the full-table exact kernel, each spot-checked bit-exact
-   against the oracle; then a 10 s pipelined loop at depth 2. Every kernel
-   must have launched.
+4. main path: batch 512 / k 10 through search_batch_async /
+   search_batch_gather, the launch counters reset before each launch and
+   read after it, each launch spot-checked bit-exact against the oracle:
+   (a) the guarded fast launch, (b) fast_heavy off (compact exact), (c) a
+   forced guard trip that relaunches the full-table exact kernel, (d) the
+   unified launch (unified=True, K5) guarded fast, (e) unified exact, (f)
+   unified with a forced trip (relaunching the packed full-table kernel),
+   (g) the windowed selection kernel (NEXTSEARCH_SELECT_PALLAS=1, K4)
+   guarded fast, (h) K4 compact exact. Then a 10 s pipelined loop at depth
+   2 on the default path and 5 s ones under unified and under K4. Every
+   kernel must have launched.
 5. server: a small on-disk index served over HTTP by the port's Engine;
    /api/search answers must match the oracle and run K1 and K2.
 
@@ -42,6 +48,7 @@ import threading
 import time
 from dataclasses import replace
 from pathlib import Path
+from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 N_DOCS = 1_000_000
@@ -214,9 +221,114 @@ def check_kernels(ti, batch, device, reps: int):
             max(2, reps // 2)),
         fast_vs_exact_h_max_rel_err=float(rel),
     )
+    del t_f32
+    out["unified_fused"] = check_unified(ti, plan, mix_c, ids, device, reps)
+    out["per_query_topk"] = check_select(ti, plan, mix_c, t_bf16, device, reps)
     for name, v in out.items():
         say(f"kernel {name}: " + " ".join(f"{k}={x:.6g}" for k, x in v.items()))
     return out
+
+
+def _rel_check(label, pairs, rtol):
+    """Max abs error over (got, expected) pairs; raises past rtol."""
+    err = 0.0
+    for a, b in pairs:
+        diff = (a - b).abs()
+        if bool((diff > rtol * b.abs()).any()):
+            raise AssertionError(
+                f"{label}: max rel err "
+                f"{float((diff / b.abs().clamp_min(1e-30)).max()):.3g}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def check_unified(ti, plan, mix_c, ids, device, reps):
+    """K5 against its plain version on the plan's light entries and compact
+    tables, in both modes: cnt bit-exact, totals and smax within 2e-6."""
+    import torch
+
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops.bm25_sparse import unified_entries
+
+    block = ti.config.device.posting_block
+    C = ti._chunk_budget(plan[1].cpu().numpy(), block)
+    sd, sq, sv = unified_entries(ti.post_doc, ti.post_score, plan, C=C,
+                                 block=block, n_slots=ti.n_slots)
+    say(f"K5 entries: {sd.numel()} lanes, "
+        f"{int((sd < ti.n_slots).sum())} live")
+    err = 0.0
+    for fast, gather in ((True, hk.gather_rows_bf16), (False, hk.gather_rows)):
+        table = gather(ids, ti.dense_rows)
+        tot, smax, cnt = hk.unified_fused(mix_c, table, sd, sq, sv, fast=fast)
+        again = hk.unified_fused(mix_c, table, sd, sq, sv, fast=fast)
+        exp = hk.unified_fused_ref(mix_c, table, sd, sq, sv, fast=fast)
+        q, n = tot.shape
+        n_sub, n_tiles = n // 128, n // 2048
+        if not all(torch.equal(a, b) for a, b in zip((tot, smax, cnt), again)):
+            raise AssertionError(f"K5 fast={fast}: two launches differ")
+        if not torch.equal(cnt, exp[2]):
+            raise AssertionError(f"K5 fast={fast}: cnt differs")
+        if not torch.equal(tot > 0, exp[0] > 0):
+            raise AssertionError(f"K5 fast={fast}: positivity differs")
+        if not torch.equal(smax[:n_sub], tot.view(q, n_sub, 128).amax(2).T):
+            raise AssertionError(f"K5 fast={fast}: smax != max of own totals")
+        if not (bool((smax[n_sub:] == float("-inf")).all())
+                and bool((cnt[n_tiles:] == 0).all())):
+            raise AssertionError(f"K5 fast={fast}: padding rows")
+        err = max(err, _rel_check(f"K5 fast={fast}", (
+            (tot, exp[0]), (smax[:n_sub], exp[1][:n_sub])), 2e-6))
+        del tot, smax, cnt, again, exp
+        if fast:
+            times = dict(
+                ms=timed(lambda: hk.unified_fused(mix_c, table, sd, sq, sv,
+                                                  fast=True), device, reps),
+                plain_ms=timed(lambda: hk.unified_fused_ref(
+                    mix_c, table, sd, sq, sv, fast=True), device, reps),
+            )
+        del table
+    return dict(max_abs_err=err, **times)
+
+
+def check_select(ti, plan, mix_c, t_bf16, device, reps):
+    """K4 against its plain version on the plan's light selection scores
+    (light totals + fast H at each (q, doc)): bit-exact."""
+    import torch
+
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops import select_kernels as sk
+    from nextsearch_tpu_torch.ops.bm25_sparse import light_totals
+
+    plan_np = plan.cpu().numpy()
+    with mock.patch.dict(os.environ, NEXTSEARCH_SELECT_PALLAS="1"):
+        w_max = ti._sel_window(plan_np[1])
+    block = ti.config.device.posting_block
+    q = plan.shape[1]
+    h, _smax, _cnt = hk.heavy_fused3(mix_c, t_bf16, fast=True)
+    sq, sd, stot, last = light_totals(
+        ti.post_doc, ti.post_score, plan[0], plan[1],
+        plan[5].contiguous().view(torch.float32),
+        C=ti._chunk_budget(plan_np[1], block), block=block, Q=q,
+        n_slots=ti.n_slots,
+    )
+    hval = h[sq.clamp(0, q - 1), sd.clamp(0, ti.n_slots - 1)]
+    sel = torch.where(last & (sq < q), stot + hval, torch.zeros((), device=device))
+    del h, hval
+    bounds = torch.searchsorted(sq, torch.arange(q + 1, dtype=sq.dtype,
+                                                 device=device))
+    k2 = max(2 * K, ti.config.device.rescore_margin)  # the path's K2
+    wins = (bounds[1:] - bounds[:-1]).cpu()
+    say(f"K4 operands: {sel.numel()} lanes, w_max={w_max}, longest window "
+        f"{int(wins.max())}, k2={k2}")
+    exp = sk.per_query_topk_ref(sel, bounds, k2)
+    got = sk.per_query_topk(sel, bounds, k2)
+    if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
+        raise AssertionError("K4 differs from plain")
+    return dict(
+        max_abs_err=float((got[0] - exp[0]).abs().max()),
+        ms=timed(lambda: sk.per_query_topk(sel, bounds, k2), device, reps),
+        plain_ms=timed(lambda: sk.per_query_topk_ref(sel, bounds, k2),
+                       device, reps),
+    )
 
 
 def spot_check(ti, oracle_segs, queries, results, memo):
@@ -238,64 +350,39 @@ def spot_check(ti, oracle_segs, queries, results, memo):
                 raise AssertionError(f"oracle mismatch (hit) for {terms}")
 
 
-def main_path(ti, seg, batches, device, loop_secs: float, card: str):
-    """(a) fast, (b) compact exact, (c) forced full-table relaunch, then
-    the pipelined loop; returns the kernels' launch counts over all of it."""
+KERNELS = ("heavy_fused3", "gather_rows_bf16", "gather_rows",
+           "per_query_topk", "unified_fused")
+
+
+def launch_counts():
+    """Launches of (K1, K2, K3, K4, K5) since the last reset."""
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops import select_kernels as sk
+
+    return (hk.heavy_fused3.launches, hk.gather_rows_bf16.launches,
+            hk.gather_rows.launches, sk.per_query_topk.launches,
+            hk.unified_fused.launches)
+
+
+def reset_counts():
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops import select_kernels as sk
+
+    hk.reset_launch_counts()
+    sk.reset_launch_counts()
+
+
+def serving_loop(ti, batches, device, secs: float, label: str, card: str):
+    """Depth-2 pipelined loop over the stream's batches (batch 0 is the
+    spot-check batch); returns the launch counts it made."""
     import numpy as np
     import torch
 
-    from nextsearch_tpu_torch.ops import heavy_kernels as hk
-
-    oracle_segs = [seg.to_oracle_segment()]
-    memo: dict = {}
-    spot = batches[0]
-    hk.reset_launch_counts()
-
-    def counts():
-        return (hk.heavy_fused3.launches, hk.gather_rows_bf16.launches,
-                hk.gather_rows.launches)
-
-    def run(label, *expect):
-        c0 = counts()
-        t = time.perf_counter()
-        res = ti.search_batch(spot, k=K)
-        dt = time.perf_counter() - t
-        spot_check(ti, oracle_segs, spot[:SPOT], res[:SPOT], memo)
-        delta = tuple(a - b for a, b in zip(counts(), c0))
-        if delta not in expect:
-            raise AssertionError(f"{label}: launches (K1, K2, K3) {delta} "
-                                 f"not in {expect}")
-        say(f"launch {label}: {dt * 1e3:.1f} ms, {SPOT} queries oracle-exact, "
-            f"launches (K1, K2, K3) {delta}")
-
-    env = dict(os.environ)
-    cfg = ti.config
-    try:
-        os.environ["NEXTSEARCH_TRIP_RESCUE"] = "8"
-        trips0 = ti.rescue_trips
-        # more than 8 tripped queries relaunch the batch exactly (K1 again)
-        run("(a) guarded fast", (1, 1, 0), (2, 1, 0))
-        if ti.rescue_trips != trips0:
-            say(f"(a) host-rescued {ti.rescue_trips - trips0} tripped queries")
-        os.environ["NEXTSEARCH_FAST_HEAVY"] = "0"
-        run("(b) compact exact", (1, 0, 1))
-        del os.environ["NEXTSEARCH_FAST_HEAVY"]
-        os.environ["NEXTSEARCH_TRIP_RESCUE"] = "0"
-        ti.config = replace(cfg, device=replace(cfg.device, fast_heavy_eps=1e9))
-        r0 = ti.relaunches
-        run("(c) tripped -> full-table exact relaunch", (2, 1, 0))
-        if ti.relaunches != r0 + 1:
-            raise AssertionError("(c) did not relaunch")
-    finally:
-        ti.config = cfg
-        os.environ.clear()
-        os.environ.update(env)
-
-    # serving loop: depth-2 pipeline over the stream's other batches
     trips0, rel0 = ti.rescue_trips, ti.relaunches
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     ti.search_batch(batches[1], k=K)  # warm
+    reset_counts()
     window, lat, done, i = [], [], 0, 1
     t0 = time.perf_counter()
     while True:
@@ -308,7 +395,7 @@ def main_path(ti, seg, batches, device, loop_secs: float, card: str):
             lat.append(time.perf_counter() - s0)
             done += BATCH
         i += 1
-        if time.perf_counter() - t0 >= loop_secs and done:
+        if time.perf_counter() - t0 >= secs and done:
             break
     while window:
         s0, h = window.pop(0)
@@ -316,18 +403,91 @@ def main_path(ti, seg, batches, device, loop_secs: float, card: str):
         lat.append(time.perf_counter() - s0)
         done += BATCH
     el = time.perf_counter() - t0
+    counts = launch_counts()
     peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
             else 0)
-    hbm = ti.hbm_bytes()
-    say(f"[{card}] serving loop: batch {BATCH} depth 2 k {K}: "
+    say(f"[{card}] serving loop {label}: batch {BATCH} depth 2 k {K}: "
         f"qps={done / el:.1f} p50_ms={float(np.median(lat)) * 1e3:.2f} "
         f"batches={len(lat)} host_rescued_queries={ti.rescue_trips - trips0} "
-        f"relaunched_batches={ti.relaunches - rel0}")
-    say(f"[{card}] index bytes: " + " ".join(f"{k}={v}" for k, v in hbm.items())
-        + f" peak_allocated={peak}")
-    return {"heavy_fused3": hk.heavy_fused3.launches,
-            "gather_rows_bf16": hk.gather_rows_bf16.launches,
-            "gather_rows": hk.gather_rows.launches}
+        f"relaunched_batches={ti.relaunches - rel0} peak_allocated={peak} "
+        f"launches (K1..K5) {counts}")
+    return counts
+
+
+def main_path(ti, seg, batches, device, loop_secs: float, card: str):
+    """Launches (a)-(h), then the pipelined loops; returns each kernel's
+    launch count summed over all of them."""
+    oracle_segs = [seg.to_oracle_segment()]
+    memo: dict = {}
+    spot = batches[0]
+    total = [0] * len(KERNELS)
+
+    def add(counts):
+        for j, c in enumerate(counts):
+            total[j] += c
+
+    def run(label, *expect):
+        reset_counts()
+        t = time.perf_counter()
+        res = ti.search_batch(spot, k=K)
+        dt = time.perf_counter() - t
+        counts = launch_counts()
+        spot_check(ti, oracle_segs, spot[:SPOT], res[:SPOT], memo)
+        if counts not in expect:
+            raise AssertionError(f"{label}: launches (K1..K5) {counts} "
+                                 f"not in {expect}")
+        add(counts)
+        say(f"launch {label}: {dt * 1e3:.1f} ms, {SPOT} queries oracle-exact, "
+            f"launches (K1..K5) {counts}")
+
+    cfg = ti.config
+
+    def config(**device_fields):
+        ti.config = replace(cfg, device=replace(cfg.device, **device_fields))
+
+    def tripped(label, *expect):
+        r0 = ti.relaunches
+        with mock.patch.dict(os.environ, NEXTSEARCH_TRIP_RESCUE="0"):
+            run(label, *expect)
+        if ti.relaunches != r0 + 1:
+            raise AssertionError(f"{label}: did not relaunch")
+
+    try:
+        # more than 8 tripped queries relaunch the batch exactly (K1 again)
+        with mock.patch.dict(os.environ, NEXTSEARCH_TRIP_RESCUE="8"):
+            trips0 = ti.rescue_trips
+            run("(a) guarded fast", (1, 1, 0, 0, 0), (2, 1, 0, 0, 0))
+            if ti.rescue_trips != trips0:
+                say(f"(a) host-rescued {ti.rescue_trips - trips0} queries")
+            with mock.patch.dict(os.environ, NEXTSEARCH_FAST_HEAVY="0"):
+                run("(b) compact exact", (1, 0, 1, 0, 0))
+        config(fast_heavy_eps=1e9)
+        tripped("(c) tripped -> full-table exact relaunch", (2, 1, 0, 0, 0))
+        config(unified=True)
+        with mock.patch.dict(os.environ, NEXTSEARCH_TRIP_RESCUE="8"):
+            run("(d) unified guarded fast", (0, 1, 0, 0, 1), (1, 1, 0, 0, 1))
+            with mock.patch.dict(os.environ, NEXTSEARCH_FAST_HEAVY="0"):
+                run("(e) unified exact", (0, 0, 1, 0, 1))
+        config(unified=True, fast_heavy_eps=1e9)
+        tripped("(f) unified tripped -> packed full-table exact relaunch",
+                (1, 1, 0, 0, 1))
+        config()
+        with mock.patch.dict(os.environ, NEXTSEARCH_SELECT_PALLAS="1",
+                             NEXTSEARCH_TRIP_RESCUE="8"):
+            run("(g) K4 guarded fast", (1, 1, 0, 1, 0), (2, 1, 0, 2, 0))
+            with mock.patch.dict(os.environ, NEXTSEARCH_FAST_HEAVY="0"):
+                run("(h) K4 compact exact", (1, 0, 1, 1, 0))
+        add(serving_loop(ti, batches, device, loop_secs, "default", card))
+        config(unified=True)
+        add(serving_loop(ti, batches, device, loop_secs / 2, "unified", card))
+        config()
+        with mock.patch.dict(os.environ, NEXTSEARCH_SELECT_PALLAS="1"):
+            add(serving_loop(ti, batches, device, loop_secs / 2, "K4", card))
+    finally:
+        ti.config = cfg
+    hbm = ti.hbm_bytes()
+    say(f"[{card}] index bytes: " + " ".join(f"{k}={v}" for k, v in hbm.items()))
+    return dict(zip(KERNELS, total))
 
 
 def server_phase(device):
@@ -413,14 +573,14 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
         loop_secs=10.0, reps=10):
     import torch
 
-    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops import cuda_build
 
     device = torch.device(device_name)
     ph = Phases()
     card = card_line() if device.type == "cuda" else "cpu rehearsal"
     print(card, flush=True)
     if device.type == "cuda":
-        info = hk.build()
+        info = cuda_build.build()
         say(f"kernel build: {info['seconds']:.1f}s -> {info['library']}")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
@@ -440,17 +600,19 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
         torch.cuda.empty_cache()
     server_phase(device)
     ph.done("server")
-    src = "nextsearch_tpu_torch/csrc/heavy.cu"
-    replaces = {
-        "heavy_fused3": "nextsearch_tpu/ops/heavy_pallas.py:706",
-        "gather_rows_bf16": "nextsearch_tpu/ops/heavy_pallas.py:611",
-        "gather_rows": "nextsearch_tpu/ops/heavy_pallas.py:537",
+    csrc = "nextsearch_tpu_torch/csrc/"
+    where = {
+        "heavy_fused3": ("heavy.cu", "nextsearch_tpu/ops/heavy_pallas.py:706"),
+        "gather_rows_bf16": ("heavy.cu", "nextsearch_tpu/ops/heavy_pallas.py:611"),
+        "gather_rows": ("heavy.cu", "nextsearch_tpu/ops/heavy_pallas.py:537"),
+        "per_query_topk": ("heavy.cu", "nextsearch_tpu/ops/select_pallas.py:218"),
+        "unified_fused": ("heavy.cu", "nextsearch_tpu/ops/heavy_pallas.py:389"),
     }
     say(f"total {time.perf_counter() - ph.t0:.1f}s on {card}")
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=replaces[name],
-             launches=launches[name], **kern[name])
-        for name in ("heavy_fused3", "gather_rows_bf16", "gather_rows")
+        dict(name=name, route="cuda", source=csrc + where[name][0],
+             replaces=where[name][1], launches=launches[name], **kern[name])
+        for name in KERNELS
     ]}), flush=True)
     return device
 

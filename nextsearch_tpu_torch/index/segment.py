@@ -34,7 +34,9 @@ from nextsearch_tpu.index.segment import (
 )
 from nextsearch_tpu.utils.logging import log
 
-from ..ops.bm25_sparse import LIGHT_BUCKET_LOG2, packed_impl, packed_multi
+from ..ops.bm25_sparse import (
+    LIGHT_BUCKET_LOG2, packed_impl, packed_multi, unified_impl,
+)
 from .device_build import build_heavy_on_device
 
 # Environment switches that pick reference paths the port does not carry.
@@ -357,12 +359,17 @@ class TorchIndex(DeviceIndex):
 
         dcfg = self.config.device
         g = self._pins.get("Q") or dcfg.launch_group
-        # The reference orders queries by light window only for its
-        # selection kernel (K4, not ported); tests can still force it.
+        # Under the selection kernel K4, order queries by light window so
+        # the long windows sit together (the reference does so for its
+        # kernel's per-program block count, segment.py:1473-1506); dealt
+        # round-robin over launch groups so each group keeps its share.
+        # Undone at gather. NEXTSEARCH_SORT_QUERIES=1 forces it (tests).
         perm = None
-        if os.environ.get("NEXTSEARCH_SORT_QUERIES") == "1" and nq > 1:
+        forced = os.environ.get("NEXTSEARCH_SORT_QUERIES") == "1"
+        select_kernel = os.environ.get("NEXTSEARCH_SELECT_PALLAS", "0") == "1"
+        if (select_kernel or forced) and nq > 1:
             wins = self._query_windows(queries)
-            if wins.size:
+            if wins.size and (wins.max() > 1024 or forced):
                 order = np.argsort(wins, kind="stable")
                 perm = _deal_sorted(order, g) if g and nq > g else order
                 queries = [queries[i] for i in perm]
@@ -372,6 +379,7 @@ class TorchIndex(DeviceIndex):
         )
         use_compact = os.environ.get("NEXTSEARCH_COMPACT_HEAVY", "1") == "1"
         block = dcfg.posting_block
+        unified = False
         if g and nq > g:
             plans, U = self._plan_groups(queries, g)
             groups = range(plans.shape[0])
@@ -384,16 +392,15 @@ class TorchIndex(DeviceIndex):
             C = self._chunk_budget(plan[1], block)
             L2 = self._light_budget(plan)
             H2 = self._heavy_budget(plan)
-            if (
+            # the unified kernel runs over the compact table at the default
+            # light bucket granularity, single launches only (as the
+            # reference, segment.py:1580-1589)
+            unified = (
                 dcfg.unified
                 and os.environ.get("NEXTSEARCH_UNIFIED", "1") == "1"
                 and self._lb_log2 == LIGHT_BUCKET_LOG2
                 and use_compact
-            ):
-                raise NotImplementedError(
-                    "the unified-totals kernel (K5) is not ported: "
-                    "ROADMAP queue 1 item 12"
-                )
+            )
             if not use_compact:
                 U = 0
             run, w_max = packed_impl, self._sel_window(plan[1])
@@ -407,26 +414,33 @@ class TorchIndex(DeviceIndex):
             n_slots=self.n_slots, K=K, K2=K2, C=C, block=block,
             bs_steps=self._bs_depth, nd=self.n_dense, nl=self.n_light,
             heavy_direct=self._heavy_direct, guard_eps=dcfg.fast_heavy_eps,
-            w_max=w_max,
-            h_bf16=os.environ.get("NEXTSEARCH_H_BF16", "0") == "1",
-            lb_log2=self._lb_log2, L2=L2, H2=H2,
         )
+        tables = (self.post_doc, self.post_score, self.dense_rows,
+                  self.light_bucket_pos, plan_dev)
 
         def launch(fh: bool) -> _HostCopy:
             # the exact relaunch under fast mode runs over the full stored
             # table (no compact f32 gather buffer), as in the reference
             uc = use_compact and (fh or not fast)
             out = run(
-                self.post_doc, self.post_score, self.dense_rows,
-                self.light_bucket_pos, plan_dev,
-                U=U if uc else 0, use_compact=uc, fast_heavy=fh, **statics,
+                *tables, U=U if uc else 0, use_compact=uc, fast_heavy=fh,
+                w_max=w_max,
+                h_bf16=os.environ.get("NEXTSEARCH_H_BF16", "0") == "1",
+                lb_log2=self._lb_log2, L2=L2, H2=H2, **statics,
             )
             return _HostCopy(out)
 
+        if unified:
+            # light entries folded into the heavy product (K5); a guard
+            # trip relaunches the exact full-table packed kernel
+            first = _HostCopy(unified_impl(
+                *tables, U=U, fast_heavy=fast, L2=L2, **statics))
+        else:
+            first = launch(fast)
         if fast:
-            return ("packedg", nq, k, K, launch(True),
-                    lambda: launch(False), perm, queries, fills)
-        return ("packed", nq, k, K, launch(False), perm, fills)
+            return ("packedg", nq, k, K, first, lambda: launch(False), perm,
+                    queries, fills)
+        return ("packed", nq, k, K, first, perm, fills)
 
     def search_batch_gather(self, handle) -> List[QueryResult]:
         """Wait for a search_batch_async launch and unpack its results."""

@@ -14,7 +14,15 @@ reference's order:
                 from the sub-block maxima; the guarded fast mode merges them
                 into one K2-wide pool and emits a per-query proof column
   rescore       bit-exact f32 re-accumulation in term-slot order
-                (exact_rescore_v5), then canonical order and dedup
+                (exact_rescore_v5, or v4 when H2 is unset), then canonical
+                order and dedup
+
+With NEXTSEARCH_SELECT_PALLAS's window bound (w_max > 0) the light
+candidates come from the windowed selection kernel K4
+(ops/select_kernels.py) instead of a re-sort of the light stream.
+``unified_impl`` is the port of bm25_search_sparse_unified: the light
+entries are folded into the heavy product by K5 and one candidate pool is
+read off the summed totals.
 
 Ties are broken as the reference's XLA ops break them: every lax.sort
 becomes a stable torch.sort on one int64 composite key (or two stable
@@ -34,9 +42,15 @@ import os
 import torch
 
 from .bm25 import PAD_DOC, canonical_sort, expand_chunks, f32_order_key
-from .heavy_kernels import CSUB, gather_rows, gather_rows_bf16, heavy_fused3
+from .heavy_kernels import (
+    CSUB, gather_rows, gather_rows_bf16, heavy_fused3, unified_fused,
+)
+from .select_kernels import per_query_topk
 
 LIGHT_BUCKET_LOG2 = 9  # nextsearch_tpu/ops/bm25_sparse.py LIGHT_BUCKET_LOG2
+# Largest window bound for which the reference selects light candidates
+# with K4 (bm25_sparse.py:1211); above it the flat sort runs, as there.
+SELECT_W_MAX = 32768
 
 
 def _round_up_16(n: int) -> int:
@@ -69,14 +83,12 @@ def segmented_cumsum_bounded(vals, first, tmax: int):
     return out
 
 
-def light_totals(post_doc, post_score, starts, light_dfs, weights, *, C: int,
-                 block: int, Q: int, n_slots: int):
-    """Flat per-(query, doc) light-term totals via sort + segmented sum.
-
-    Returns (sq, sd, stot, last) sorted by (q, doc); stot at `last` lanes is
-    the f32 sum of that (q, doc)'s light contributions in term-slot order
-    (the stable sort keeps expansion order inside a group). Invalid lanes
-    carry q = Q, doc = n_slots and sort to the end."""
+def light_entries(post_doc, post_score, starts, light_dfs, weights, *,
+                  C: int, block: int, n_slots: int):
+    """The light postings of a plan as flat [C * block] lanes (doc, chunk
+    query row, contribution w * score); dead lanes carry doc = n_slots and
+    contribution 0, and their query row is the chunk's (Q past the live
+    chunks)."""
     cs, cl, cq, cw = expand_chunks(starts, light_dfs, weights, C=C, block=block)
     P = post_doc.shape[0]
     offs = torch.arange(block, dtype=torch.int64, device=starts.device)[None, :]
@@ -86,12 +98,26 @@ def light_totals(post_doc, post_score, starts, light_dfs, weights, *, C: int,
                       torch.full_like(idx, n_slots))
     contrib = torch.where(valid, cw[:, None] * post_score[idx],
                           torch.zeros((), dtype=torch.float32, device=idx.device))
-    qrow = torch.where(valid, cq[:, None].expand(-1, block),
-                       torch.full_like(idx, Q))
+    return doc.reshape(-1), cq[:, None].expand(-1, block).reshape(-1), \
+        valid.reshape(-1), contrib.reshape(-1)
+
+
+def light_totals(post_doc, post_score, starts, light_dfs, weights, *, C: int,
+                 block: int, Q: int, n_slots: int):
+    """Flat per-(query, doc) light-term totals via sort + segmented sum.
+
+    Returns (sq, sd, stot, last) sorted by (q, doc); stot at `last` lanes is
+    the f32 sum of that (q, doc)'s light contributions in term-slot order
+    (the stable sort keeps expansion order inside a group). Invalid lanes
+    carry q = Q, doc = n_slots and sort to the end."""
+    doc, cq, valid, contrib = light_entries(
+        post_doc, post_score, starts, light_dfs, weights,
+        C=C, block=block, n_slots=n_slots,
+    )
+    qrow = torch.where(valid, cq, torch.full_like(cq, Q))
     shift = max(int(n_slots).bit_length(), 1)
-    key = (qrow.reshape(-1) << shift) | doc.reshape(-1)
-    skey, order = torch.sort(key, stable=True)
-    sc = contrib.reshape(-1)[order]
+    skey, order = torch.sort((qrow << shift) | doc, stable=True)
+    sc = contrib[order]
     sq = skey >> shift
     sd = skey & ((1 << shift) - 1)
     change = (sq[1:] != sq[:-1]) | (sd[1:] != sd[:-1])
@@ -224,36 +250,18 @@ def _scatter_set(size: int, fill: int, idx, vals):
     return out
 
 
-def exact_rescore_v5(post_doc, post_score, dense_rows, light_bucket_pos,
-                     starts, slot_dense, slot_light, weights, cand, *,
-                     bs_steps: int, nd: int, nl: int, L2: int, H2: int,
-                     lb_log2: int = LIGHT_BUCKET_LOG2):
-    """Bit-exact term-slot-order rescore of candidates (port of
-    exact_rescore_v5). Heavy pairs read their exact eager score off the
-    f32 dense rows; light pairs binary-search their posting range through
-    the light bucket table. Each term's contribution is w * v rounded, then
-    added to the running f32 sum in term-slot order, as the reference's
-    C++ engine accumulates."""
+def _light_values(post_doc, post_score, light_bucket_pos, starts,
+                  slot_light, weights, cand, *, bs_steps: int, nl: int,
+                  L2: int, lb_log2: int):
+    """[Q, T, kc] exact eager scores of the candidates for the light
+    (query, slot) pairs, 0 elsewhere: the live light pairs are compacted to
+    [L2 + 1] (row-major (q, t) order) and binary-search their posting range
+    through the light bucket table (v4's and v5's light side)."""
     Q, T = starts.shape
     dev = cand.device
     P = post_doc.shape[0]
-    live_w = weights != 0.0
     qgrid = torch.arange(Q, dtype=torch.int64, device=dev)[:, None].expand(Q, T).reshape(-1)
-
-    # heavy pairs, compacted to [H2 + 1]
-    hflat = ((slot_dense < nd) & live_w).reshape(-1)
-    hidx = _compact_pairs(hflat, H2)
-    sd_flat = slot_dense.reshape(-1).to(torch.int64)
-    hp_row = _scatter_set(H2 + 1, nd, hidx,
-                          torch.where(hflat, sd_flat, torch.full_like(sd_flat, nd)))
-    hp_q = _scatter_set(H2 + 1, 0, hidx, qgrid)
-    chv = cand[hp_q.clamp(0, Q - 1)]  # [H2+1, kc]
-    dvc = dense_rows[hp_row.clamp(0, nd)[:, None], chv]
-    dvc[H2] = 0.0  # sentinel row: light/padding pairs
-    dv = dvc[hidx].reshape(Q, T, -1)
-
-    # light pairs, compacted to [L2 + 1]
-    lflat = ((slot_light < nl) & live_w).reshape(-1)
+    lflat = ((slot_light < nl) & (weights != 0.0)).reshape(-1)
     lidx = _compact_pairs(lflat, L2)
     lp_start = _scatter_set(L2 + 1, 0, lidx, starts.reshape(-1).to(torch.int64))
     lp_row = _scatter_set(L2 + 1, nl, lidx, slot_light.reshape(-1).to(torch.int64))
@@ -274,16 +282,88 @@ def exact_rescore_v5(post_doc, post_score, dense_rows, light_bucket_pos,
     lhit = (lo < hi0) & (post_doc[pos] == cl)
     v_light = torch.where(lhit, post_score[pos], torch.zeros((), dtype=torch.float32, device=dev))
     v_light[L2] = 0.0  # sentinel row: heavy/padding pairs
-    vl = v_light[lidx].reshape(Q, T, -1)
+    return v_light[lidx].reshape(Q, T, -1)
 
+
+def _accumulate(slot_dense, weights, dv, vl, nd: int):
+    """Each term's contribution w * v rounded, then added to the running
+    f32 sum in term-slot order, as the reference's C++ engine accumulates
+    (separate multiply and add ops: eager torch contracts no FMA)."""
+    Q, T = slot_dense.shape
     w = weights[:, :, None]
     v = torch.where((slot_dense < nd)[:, :, None], dv, vl)
     hit = (v > 0.0) & (w != 0.0)
-    term = torch.where(hit, torch.abs(w * v), torch.zeros((), dtype=torch.float32, device=dev))
-    acc = torch.zeros((Q, cand.shape[1]), dtype=torch.float32, device=dev)
+    term = torch.where(hit, torch.abs(w * v), torch.zeros((), dtype=torch.float32, device=v.device))
+    acc = torch.zeros((Q, v.shape[2]), dtype=torch.float32, device=v.device)
     for t in range(T):
         acc = acc + term[:, t]
     return acc
+
+
+def exact_rescore_v4(post_doc, post_score, dense_rows, light_bucket_pos,
+                     starts, slot_dense, slot_light, weights, cand, *,
+                     bs_steps: int, nd: int, nl: int, L2: int,
+                     lb_log2: int = LIGHT_BUCKET_LOG2):
+    """Bit-exact term-slot-order rescore of candidates (port of
+    exact_rescore_v4): heavy lanes read dense_rows[row, cand] over the
+    whole [Q, T, kc] grid, non-heavy slots reading row nd (the zero row);
+    light pairs as in v5."""
+    row = torch.where(slot_dense < nd, slot_dense.to(torch.int64),
+                      torch.full_like(slot_dense, nd, dtype=torch.int64))
+    dv = dense_rows[row[:, :, None], cand[:, None, :]]
+    vl = _light_values(post_doc, post_score, light_bucket_pos, starts,
+                       slot_light, weights, cand, bs_steps=bs_steps, nl=nl,
+                       L2=L2, lb_log2=lb_log2)
+    return _accumulate(slot_dense, weights, dv, vl, nd)
+
+
+def exact_rescore_v5(post_doc, post_score, dense_rows, light_bucket_pos,
+                     starts, slot_dense, slot_light, weights, cand, *,
+                     bs_steps: int, nd: int, nl: int, L2: int, H2: int,
+                     lb_log2: int = LIGHT_BUCKET_LOG2):
+    """Bit-exact term-slot-order rescore of candidates (port of
+    exact_rescore_v5). Heavy pairs are compacted to [H2 + 1] and read their
+    exact eager score off the f32 dense rows; light pairs binary-search
+    their posting range through the light bucket table."""
+    Q, T = starts.shape
+    dev = cand.device
+    qgrid = torch.arange(Q, dtype=torch.int64, device=dev)[:, None].expand(Q, T).reshape(-1)
+    hflat = ((slot_dense < nd) & (weights != 0.0)).reshape(-1)
+    hidx = _compact_pairs(hflat, H2)
+    sd_flat = slot_dense.reshape(-1).to(torch.int64)
+    hp_row = _scatter_set(H2 + 1, nd, hidx,
+                          torch.where(hflat, sd_flat, torch.full_like(sd_flat, nd)))
+    hp_q = _scatter_set(H2 + 1, 0, hidx, qgrid)
+    chv = cand[hp_q.clamp(0, Q - 1)]  # [H2+1, kc]
+    dvc = dense_rows[hp_row.clamp(0, nd)[:, None], chv]
+    dvc[H2] = 0.0  # sentinel row: light/padding pairs
+    dv = dvc[hidx].reshape(Q, T, -1)
+    vl = _light_values(post_doc, post_score, light_bucket_pos, starts,
+                       slot_light, weights, cand, bs_steps=bs_steps, nl=nl,
+                       L2=L2, lb_log2=lb_log2)
+    return _accumulate(slot_dense, weights, dv, vl, nd)
+
+
+def _rescore(post_doc, post_score, dense_rows, light_bucket_pos, plan, cand,
+             *, n_slots: int, bs_steps: int, nd: int, nl: int, L2: int,
+             H2: int, lb_log2: int):
+    """Exact scores of the candidate slots (PAD_DOC -> 0) by v5, or by v4
+    when H2 is unset, as the reference chooses; returns (exact, safe_cand)."""
+    if L2 <= 0:
+        raise ValueError("heavy_direct rescore requires L2 > 0")
+    weights = plan[5].contiguous().view(torch.float32)
+    safe_cand = cand.clamp(0, n_slots - 1)
+    args = (post_doc, post_score, dense_rows, light_bucket_pos, plan[0],
+            plan[2], plan[3], weights, safe_cand)
+    if H2 > 0:
+        exact = exact_rescore_v5(*args, bs_steps=bs_steps, nd=nd, nl=nl,
+                                 L2=L2, H2=H2, lb_log2=lb_log2)
+    else:
+        exact = exact_rescore_v4(*args, bs_steps=bs_steps, nd=nd, nl=nl,
+                                 L2=L2, lb_log2=lb_log2)
+    exact = torch.where(cand < n_slots, exact,
+                        torch.zeros((), dtype=torch.float32, device=cand.device))
+    return exact, safe_cand
 
 
 def dedup_sorted(vals, docs):
@@ -332,6 +412,23 @@ def heavy_operands(plan, rows: int, *, nd: int, U: int, use_compact: bool):
     return mix, ids
 
 
+def _guard_column(sval, tau, K: int, eps: float):
+    """1.0 where the guarded fast launch proved its top K, else 0.0: every
+    excluded doc's true score is <= (1 + eps) * tau, so a K-th rescored
+    score above that bound cannot be displaced. Strict > keeps boundary ties
+    (broken doc-ascending) on the relaunch path. The factor is rounded to
+    f32 before the multiply, as JAX's weak-typed scalar is."""
+    scale = torch.full((), 1.0 + eps, dtype=torch.float32, device=sval.device)
+    ok = (sval[:, K - 1] > scale * tau) | (tau <= 0.0)
+    return ok.to(torch.float32)[:, None]
+
+
+def _windowed(w_max: int) -> bool:
+    """Whether the light candidates come from the windowed selection
+    kernel K4."""
+    return 0 < w_max <= SELECT_W_MAX
+
+
 def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
                 n_slots: int, K: int, K2: int, C: int, block: int,
                 bs_steps: int, nd: int, nl: int, U: int,
@@ -347,33 +444,30 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
     use_pallas=True's kernel choices: the compact launch gathers the
     batch's U distinct dense rows (K2 to bf16 under fast_heavy, else K3
     f32) and runs K1 over them; the full-table launch runs K1 over the
-    stored table. fast_heavy is the guarded one-pass mode: guard column 0
+    stored table. 0 < w_max <= 32768 (the batch's window bound, set under
+    NEXTSEARCH_SELECT_PALLAS=1) selects the light candidates with K4, whose
+    values are exact; otherwise a flat sort does (quantized keys under
+    fast_heavy). fast_heavy is the guarded one-pass mode: guard column 0
     means the caller must relaunch exactly (TorchIndex does).
 
     post_doc int32 [P], post_score f32 [P], dense_rows f32 [rows, n_slots],
     light_bucket_pos int32 [NL+1, NBl+1], plan int32 [7, Q, T] (rows:
     starts, light dfs, slot_dense, slot_light, slot_compact, weight bits,
     unique dense row ids)."""
-    if w_max > 0:
-        _unported("the windowed selection kernel K4 (w_max > 0)", "queue 2 K4")
     if h_bf16:
         _unported("bf16 H storage (h_bf16)", "queue 1 item 12")
     if prof_skip:
         _unported("prof_skip stage attribution", "queue 1 item 4")
     if not heavy_direct:
         _unported("exact_rescore_v2 (bf16 dense rows)", "queue 1 item 12")
-    if L2 <= 0 or H2 <= 0:
-        _unported("exact_rescore_v4 (L2 or H2 unset)", "queue 1 item 12")
     if dense_rows.dtype != torch.float32:
         _unported("bf16 dense rows", "queue 1 item 12")
 
     dev = plan.device
     starts = plan[0]
     light_dfs = plan[1]
-    slot_dense = plan[2]
-    slot_light = plan[3]
     weights = plan[5].contiguous().view(torch.float32)
-    Q, T = starts.shape
+    Q = starts.shape[0]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     mix, ids = heavy_operands(plan, dense_rows.shape[0], nd=nd, U=U,
@@ -398,9 +492,18 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
     light_only = valid_last & (hval == 0.0)
     found = heavy_found + per_query_counts(sq, light_only, Q)
     sel_score = torch.where(valid_last, stot + hval, zero)
-    ldocs, lvals = per_query_topk_flat(
-        sq, sel_score, sd, Q, K2, quantized=fast_heavy,
-    )
+    if _windowed(w_max):
+        # each query's lanes are one window of the (q, doc)-sorted stream,
+        # doc-ascending inside it: K4's lowest-index tie rule is the sort
+        # path's (score desc, doc asc)
+        bounds = torch.searchsorted(
+            sq, torch.arange(Q + 1, dtype=sq.dtype, device=dev))
+        lvals, gidx = per_query_topk(sel_score, bounds, K2)
+        ldocs = torch.where(lvals > 0, sd[gidx], torch.full_like(gidx, PAD_DOC))
+    else:
+        ldocs, lvals = per_query_topk_flat(
+            sq, sel_score, sd, Q, K2, quantized=fast_heavy,
+        )
     hvals, hdocs = heavy_candidates(H, smax_sq, K2, Q, n_slots)
     if fast_heavy:
         allv = torch.cat([lvals, hvals], dim=1)
@@ -414,13 +517,11 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
         cand = torch.cat([ldocs, hdocs], dim=1)
     cand = torch.where(cand >= n_slots, torch.full_like(cand, PAD_DOC), cand)
 
-    safe_cand = cand.clamp(0, n_slots - 1)
-    exact = exact_rescore_v5(
-        post_doc, post_score, dense_rows, light_bucket_pos, starts,
-        slot_dense, slot_light, weights, safe_cand,
-        bs_steps=bs_steps, nd=nd, nl=nl, L2=L2, H2=H2, lb_log2=lb_log2,
+    exact, safe_cand = _rescore(
+        post_doc, post_score, dense_rows, light_bucket_pos, plan, cand,
+        n_slots=n_slots, bs_steps=bs_steps, nd=nd, nl=nl, L2=L2, H2=H2,
+        lb_log2=lb_log2,
     )
-    exact = torch.where(cand < n_slots, exact, zero)
     sval, sdoc = canonical_sort(exact, safe_cand)
     sval, sdoc = dedup_sorted(sval, sdoc)
 
@@ -430,16 +531,84 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
         found[:, None].to(torch.float32),
     ]
     if fast_heavy:
-        # every excluded doc's true score <= (1 + eps) * tau; eps composes
-        # the one-pass dot's bound with the quantized selection key's
-        # truncation (2^-(22 - qbits)), as the reference does
+        # eps composes the one-pass dot's bound with the quantized
+        # selection key's truncation (2^-(22 - qbits)), as the reference
+        # does; K4's values are exact and add no term
         qbits = (Q + 1).bit_length()
-        e2 = 2.0 ** -(22 - qbits)
-        eps_eff = guard_eps + e2 * (1.0 + guard_eps)
-        scale = torch.full((), 1.0 + eps_eff, dtype=torch.float32, device=dev)
-        kth = sval[:, K - 1]
-        ok = (kth > scale * tau) | (tau <= 0.0)
-        cols.append(ok.to(torch.float32)[:, None])
+        e2 = 0.0 if _windowed(w_max) else 2.0 ** -(22 - qbits)
+        cols.append(_guard_column(sval, tau, K, guard_eps + e2 * (1.0 + guard_eps)))
+    return torch.cat(cols, dim=1)
+
+
+def unified_entries(post_doc, post_score, plan, *, C: int, block: int,
+                    n_slots: int):
+    """The light entries of a plan as (doc, q, value) streams sorted by
+    (doc, q), the order K5 takes them in: one stable sort of an int64
+    (doc << qshift) | q key (the reference packs the same order into
+    uint32 where it fits). Dead lanes carry doc = n_slots and sort last."""
+    Q = plan.shape[1]
+    weights = plan[5].contiguous().view(torch.float32)
+    doc, cq, _valid, contrib = light_entries(
+        post_doc, post_score, plan[0], plan[1], weights,
+        C=C, block=block, n_slots=n_slots,
+    )
+    qshift = max((Q - 1).bit_length(), 1)
+    key = (doc << qshift) | cq.clamp(0, Q - 1)
+    skey, order = torch.sort(key, stable=True)
+    return skey >> qshift, skey & ((1 << qshift) - 1), contrib[order]
+
+
+def unified_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
+                 n_slots: int, K: int, K2: int, C: int, block: int,
+                 bs_steps: int, nd: int, nl: int, U: int,
+                 heavy_direct: bool = True, fast_heavy: bool = False,
+                 guard_eps: float = 2e-3, L2: int = 0):
+    """One sparse batch through the unified-totals pipeline; packed output
+    as packed_impl's ([Q, 2K+1], plus the guard column under fast_heavy).
+
+    Port of nextsearch_tpu/ops/bm25_sparse.py bm25_search_sparse_unified
+    with use_pallas=True's kernel choices: the compact table by K2 (bf16,
+    fast) or K3 (f32), the light entries sorted by (doc, q) and folded into
+    the product by K5, whose tile counts give `found` exactly; ONE K2-wide
+    candidate pool off the totals' sub-block maxima; the v4 rescore and the
+    canonical order (no dedup: a doc enters the one pool once). Under
+    fast_heavy a trip means the caller relaunches the exact packed kernel.
+    The light bucket granularity is the default one."""
+    if not heavy_direct:
+        _unported("exact_rescore_v2 (bf16 dense rows)", "queue 1 item 12")
+    if dense_rows.dtype != torch.float32:
+        _unported("bf16 dense rows", "queue 1 item 12")
+    if L2 <= 0:
+        raise ValueError("heavy_direct rescore requires L2 > 0")
+    Q = plan.shape[1]
+    mix, ids = heavy_operands(plan, dense_rows.shape[0], nd=nd, U=U,
+                              use_compact=True)
+    if fast_heavy:
+        table = gather_rows_bf16(ids, dense_rows)
+    else:
+        table = gather_rows(ids, dense_rows)
+    sd, sq, sv = unified_entries(post_doc, post_score, plan, C=C,
+                                 block=block, n_slots=n_slots)
+    totals, smax_sq, cnt_tq = unified_fused(mix, table, sd, sq, sv,
+                                            fast=fast_heavy)
+    del table, sd, sq, sv
+    found = cnt_tq.sum(dim=0)
+    pool_vals, cand = heavy_candidates(totals, smax_sq, K2, Q, n_slots)
+    del totals
+    cand = torch.where(cand >= n_slots, torch.full_like(cand, PAD_DOC), cand)
+    exact, safe_cand = _rescore(
+        post_doc, post_score, dense_rows, light_bucket_pos, plan, cand,
+        n_slots=n_slots, bs_steps=bs_steps, nd=nd, nl=nl, L2=L2, H2=0,
+        lb_log2=LIGHT_BUCKET_LOG2,
+    )
+    sval, sdoc = canonical_sort(exact, safe_cand)
+    cols = [
+        sval[:, :K],
+        sdoc[:, :K].to(torch.float32),
+        found[:, None].to(torch.float32),
+    ]
+    if fast_heavy:
+        cols.append(_guard_column(sval, pool_vals[:, K2 - 1], K, guard_eps))
     return torch.cat(cols, dim=1)
 
 

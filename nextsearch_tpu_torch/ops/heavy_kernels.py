@@ -1,5 +1,6 @@
 """Heavy-term kernels of the sparse path: K1 (fused matmul + selection
-epilogue) and K2/K3 (row gathers), as hand-written CUDA for Hopper.
+epilogue), K5 (the same with the light entries folded into the product) and
+K2/K3 (row gathers), as hand-written CUDA for Hopper.
 
 Each public wrapper checks its arguments, runs the plain PyTorch version
 when the tensors lie on the CPU (the CPU tests), and launches its CUDA
@@ -7,10 +8,8 @@ kernel when they lie on a CUDA device, raising if the launch fails. There is
 no switch that routes a CUDA tensor to the plain version. Each wrapper
 counts its own kernel launches in ``<wrapper>.launches``.
 
-The kernels live in ``nextsearch_tpu_torch/csrc/heavy.cu``. They are built at
-first use with nvcc (sm_90a, plain C interface, loaded with ctypes) into
-``nextsearch_tpu_torch/build/``, keyed on a hash of the source and flags, so a
-fresh checkout builds them once and later processes reuse the library.
+The kernels live in ``nextsearch_tpu_torch/csrc/heavy.cu``, built at first
+use by ops/cuda_build.py.
 
 Layouts: the dense table is ``[rows, n_slots]`` and H is ``[Q, n_slots]``
 (the JAX package's 3D ``[.., n_slots/128, 128]`` layouts are free views of
@@ -20,106 +19,13 @@ layouts, with tiles_pad = round_up(n_slots / 2048, 8).
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-
 import torch
+
+from .cuda_build import check_aligned, check_rc, library, stream
 
 TILE = 2048  # docs per count tile (cnt rows)
 CSUB = 128  # docs per selection sub-block (smax rows)
 _CPT = TILE // CSUB
-
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "heavy.cu"
-_BUILD_DIR = _PKG / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_lib_lock = threading.Lock()
-_lib = None
-# Filled by the first build in this process: seconds spent and nvcc's
-# -Xptxas -v report (registers, shared memory, spills per kernel).
-BUILD_INFO: dict = {}
-
-
-def _nvcc() -> str:
-    """Path of nvcc: PATH first, then the toolkit PyTorch itself found."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def _load_library():
-    """Build (once per source hash) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-        so = _BUILD_DIR / f"libheavy_{key[:16]}.so"
-        t0 = time.perf_counter()
-        log = ""
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            log = proc.stderr
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ns_heavy_fused3.argtypes = [
-            vp, vp, ci, ci, vp, vp, vp, ci, ci, cll, vp,
-        ]
-        lib.ns_heavy_fused3.restype = ci
-        lib.ns_gather_rows.argtypes = [vp, vp, vp, ci, ci, ci, cll, vp]
-        lib.ns_gather_rows.restype = ci
-        BUILD_INFO.update(
-            seconds=time.perf_counter() - t0, library=str(so), ptxas=log,
-        )
-        _lib = lib
-        return lib
-
-
-def build() -> dict:
-    """Build and load the kernels now (normally done at first launch)."""
-    _load_library()
-    return dict(BUILD_INFO)
-
-
-def _check_rc(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-
-
-def _check_aligned(*tensors) -> None:
-    for t in tensors:
-        if t.data_ptr() % 16:
-            raise ValueError("kernel operands must be 16-byte aligned")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _pads(n_slots: int):
@@ -129,28 +35,28 @@ def _pads(n_slots: int):
 
 
 def reset_launch_counts() -> None:
-    for fn in (heavy_fused3, gather_rows, gather_rows_bf16):
+    for fn in (heavy_fused3, unified_fused, gather_rows, gather_rows_bf16):
         fn.launches = 0
 
 
 # ---------------------------------------------------------------- K1
 
 
-def heavy_fused3_ref(mix: torch.Tensor, table: torch.Tensor, *, fast: bool):
-    """Plain PyTorch version of heavy_fused3 (the JAX heavy_fused3_xla).
-
-    fast rounds both operands to bf16 (round-to-nearest-even) first, as the
-    TPU's one-pass DEFAULT dot does; the product then runs in f32. TF32 is
-    off (torch.backends.cuda.matmul.allow_tf32 = False) so exact mode is a
-    true fp32 product on a card as well.
-    """
+def _product_ref(mix: torch.Tensor, table: torch.Tensor, *, fast: bool):
+    """mix @ table as K1 computes it. fast rounds both operands to bf16
+    (round-to-nearest-even) first, as the TPU's one-pass DEFAULT dot does;
+    the product then runs in f32. TF32 is off
+    (torch.backends.cuda.matmul.allow_tf32 = False) so exact mode is a true
+    fp32 product on a card as well."""
     torch.backends.cuda.matmul.allow_tf32 = False
     if fast:
-        a = mix.to(torch.bfloat16).float()
-        b = table.to(torch.bfloat16).float()
-    else:
-        a, b = mix, table.float()
-    h = a @ b
+        return mix.to(torch.bfloat16).float() @ table.to(torch.bfloat16).float()
+    return mix @ table.float()
+
+
+def _tile_stats_ref(h: torch.Tensor):
+    """K1's epilogue: per-sub-block max (-inf padded) and per-tile count of
+    h > 0 (zero padded), in the JAX layouts."""
     q, n_slots = h.shape
     n_tiles, tiles_pad, sub_pad = _pads(n_slots)
     n_sub = n_slots // CSUB
@@ -160,7 +66,47 @@ def heavy_fused3_ref(mix: torch.Tensor, table: torch.Tensor, *, fast: bool):
     smax[:n_sub] = h.view(q, n_sub, CSUB).amax(dim=2).T
     cnt = torch.zeros((tiles_pad, q), dtype=torch.float32, device=h.device)
     cnt[:n_tiles] = (h.view(q, n_tiles, TILE) > 0).sum(dim=2).T.float()
-    return h, smax, cnt
+    return smax, cnt
+
+
+def heavy_fused3_ref(mix: torch.Tensor, table: torch.Tensor, *, fast: bool):
+    """Plain PyTorch version of heavy_fused3 (the JAX heavy_fused3_xla)."""
+    h = _product_ref(mix, table, fast=fast)
+    return (h, *_tile_stats_ref(h))
+
+
+def _check_heavy_operands(name: str, mix: torch.Tensor, table: torch.Tensor):
+    if mix.dim() != 2 or table.dim() != 2:
+        raise ValueError(f"{name}: mix and table must be 2D")
+    if mix.dtype != torch.float32:
+        raise TypeError(f"{name}: mix must be float32, got {mix.dtype}")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: table dtype {table.dtype}")
+    q, nd = mix.shape
+    if table.shape[0] != nd:
+        raise ValueError(f"{name}: mix {tuple(mix.shape)} vs table "
+                         f"{tuple(table.shape)}")
+    n_slots = table.shape[1]
+    if n_slots % TILE or q == 0 or nd == 0:
+        raise ValueError(f"{name}: bad shapes Q={q} ND={nd} "
+                         f"n_slots={n_slots}")
+    if mix.device != table.device:
+        raise ValueError(f"{name}: mix and table on different devices")
+    if not (mix.is_contiguous() and table.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {table.device}")
+
+
+def _heavy_outputs(q: int, n_slots: int, dev):
+    """H/totals, smax pre-filled with -inf and cnt with 0 (the kernels
+    write only the real sub-blocks and tiles)."""
+    _n_tiles, tiles_pad, sub_pad = _pads(n_slots)
+    return (
+        torch.empty((q, n_slots), dtype=torch.float32, device=dev),
+        torch.full((sub_pad, q), float("-inf"), dtype=torch.float32, device=dev),
+        torch.zeros((tiles_pad, q), dtype=torch.float32, device=dev),
+    )
 
 
 def heavy_fused3(mix: torch.Tensor, table: torch.Tensor, *, fast: bool):
@@ -172,46 +118,107 @@ def heavy_fused3(mix: torch.Tensor, table: torch.Tensor, *, fast: bool):
     -inf, cnt f32 [tiles_pad, Q] padded with 0). fast=True is the guarded
     one-pass mode (bf16 operands, f32 accumulation); fast=False is fp32.
     """
-    if mix.dim() != 2 or table.dim() != 2:
-        raise ValueError("heavy_fused3: mix and table must be 2D")
-    if mix.dtype != torch.float32:
-        raise TypeError(f"heavy_fused3: mix must be float32, got {mix.dtype}")
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"heavy_fused3: table dtype {table.dtype}")
-    q, nd = mix.shape
-    if table.shape[0] != nd:
-        raise ValueError(f"heavy_fused3: mix {tuple(mix.shape)} vs table "
-                         f"{tuple(table.shape)}")
-    n_slots = table.shape[1]
-    if n_slots % TILE or q == 0 or nd == 0:
-        raise ValueError(f"heavy_fused3: bad shapes Q={q} ND={nd} "
-                         f"n_slots={n_slots}")
-    if mix.device != table.device:
-        raise ValueError("heavy_fused3: mix and table on different devices")
-    if not (mix.is_contiguous() and table.is_contiguous()):
-        raise ValueError("heavy_fused3: operands must be contiguous")
+    _check_heavy_operands("heavy_fused3", mix, table)
     if table.device.type == "cpu":
         return heavy_fused3_ref(mix, table, fast=fast)
-    if table.device.type != "cuda":
-        raise ValueError(f"heavy_fused3: unsupported device {table.device}")
-    _check_aligned(mix, table)
-    lib = _load_library()
+    check_aligned(mix, table)
+    lib = library()
     dev = table.device
-    _n_tiles, tiles_pad, sub_pad = _pads(n_slots)
-    h = torch.empty((q, n_slots), dtype=torch.float32, device=dev)
-    smax = torch.full((sub_pad, q), float("-inf"), dtype=torch.float32,
-                      device=dev)
-    cnt = torch.zeros((tiles_pad, q), dtype=torch.float32, device=dev)
+    (q, nd), n_slots = mix.shape, table.shape[1]
+    h, smax, cnt = _heavy_outputs(q, n_slots, dev)
     with torch.cuda.device(dev):
         rc = lib.ns_heavy_fused3(
             mix.data_ptr(), table.data_ptr(),
             int(table.dtype == torch.bfloat16), int(bool(fast)),
             h.data_ptr(), smax.data_ptr(), cnt.data_ptr(),
-            q, nd, n_slots, _stream(dev),
+            q, nd, n_slots, stream(dev),
         )
-    _check_rc(rc, "heavy_fused3")
+    check_rc(rc, "heavy_fused3")
     heavy_fused3.launches += 1
     return h, smax, cnt
+
+
+# ---------------------------------------------------------------- K5
+
+
+def _entry_runs(sd, sq, sv, n_slots: int):
+    """Each (doc, q) run of a (doc, q)-sorted entry stream with its values
+    summed in stream order (a left fold, as the kernel's run-start thread
+    adds them); sentinel entries (doc >= n_slots) are dropped. Returns
+    (doc, q, sum) per run."""
+    live = sd < n_slots
+    sd, sq, sv = sd[live], sq[live], sv[live]
+    n = sd.numel()
+    if n == 0:
+        return sd, sq, sv
+    change = (sd[1:] != sd[:-1]) | (sq[1:] != sq[:-1])
+    one = torch.ones((1,), dtype=torch.bool, device=sd.device)
+    starts = torch.nonzero(torch.cat([one, change])).flatten()
+    ends = torch.cat([starts[1:], torch.full((1,), n, device=sd.device)])
+    total = sv[starts]
+    for o in range(1, int((ends - starts).max())):
+        idx = starts + o
+        total = torch.where(idx < ends, total + sv[idx.clamp(max=n - 1)], total)
+    return sd[starts], sq[starts], total
+
+
+def unified_fused_ref(mix, table, sd, sq, sv, *, fast: bool):
+    """Plain PyTorch version of unified_fused: H as heavy_fused3_ref
+    computes it, each (q, doc) run's stream-order sum added once, then K1's
+    epilogue of the totals."""
+    totals = _product_ref(mix, table, fast=fast)
+    d, q, run = _entry_runs(sd.long(), sq.long(), sv, table.shape[1])
+    totals[q, d] = totals[q, d] + run  # runs are distinct cells
+    return (totals, *_tile_stats_ref(totals))
+
+
+def unified_fused(mix: torch.Tensor, table: torch.Tensor, sd: torch.Tensor,
+                  sq: torch.Tensor, sv: torch.Tensor, *, fast: bool):
+    """Unified totals: mix @ table plus every light entry, and K1's
+    per-sub-block max and per-tile positive count of the sum.
+
+    Replaces nextsearch_tpu/ops/heavy_pallas.py unified_fused_pallas (K5).
+    mix f32 [Q, uc] and table f32/bf16 [uc, n_slots] as heavy_fused3 takes
+    them (fast rounds both to bf16). The entries are the light
+    contributions as streams sorted by (doc, q): sd int [N] doc slots
+    (sentinel n_slots for dead lanes), sq int [N] query rows in [0, Q), sv
+    f32 [N] values. Returns (totals f32 [Q, n_slots], smax, cnt) in
+    heavy_fused3's layouts. The entry sums are exact f32 in both modes;
+    entries of one (q, doc) are summed in stream order and added to the
+    product once, so the result does not depend on the launch.
+    """
+    _check_heavy_operands("unified_fused", mix, table)
+    if sd.dim() != 1 or sq.shape != sd.shape or sv.shape != sd.shape:
+        raise ValueError("unified_fused: sd, sq and sv must be 1D of one length")
+    if sv.dtype != torch.float32 or sd.dtype not in (torch.int32, torch.int64) \
+            or sq.dtype not in (torch.int32, torch.int64):
+        raise TypeError("unified_fused: int sd/sq and float32 sv required")
+    if not (sd.device == sq.device == sv.device == table.device):
+        raise ValueError("unified_fused: entries and table on different devices")
+    if table.device.type == "cpu":
+        return unified_fused_ref(mix, table, sd, sq, sv, fast=fast)
+    check_aligned(mix, table)
+    lib = library()
+    dev = table.device
+    (q, nd), n_slots = mix.shape, table.shape[1]
+    sd32 = sd.to(torch.int32).contiguous()
+    sq32 = sq.to(torch.int32).contiguous()
+    sv = sv.contiguous()
+    # entry offsets per 128-doc sub-block (the kernel's grid column)
+    edges = torch.arange(0, n_slots + 1, CSUB, dtype=torch.int32, device=dev)
+    eoff = torch.searchsorted(sd32, edges).to(torch.int32)
+    totals, smax, cnt = _heavy_outputs(q, n_slots, dev)
+    with torch.cuda.device(dev):
+        rc = lib.ns_unified_fused(
+            mix.data_ptr(), table.data_ptr(),
+            int(table.dtype == torch.bfloat16), int(bool(fast)),
+            sd32.data_ptr(), sq32.data_ptr(), sv.data_ptr(), eoff.data_ptr(),
+            totals.data_ptr(), smax.data_ptr(), cnt.data_ptr(),
+            q, nd, n_slots, stream(dev),
+        )
+    check_rc(rc, "unified_fused")
+    unified_fused.launches += 1
+    return totals, smax, cnt
 
 
 # ---------------------------------------------------------------- K2 / K3
@@ -245,8 +252,8 @@ def _gather(ids, table, out_dtype, name, fn):
     if n_slots % 4 or ids.numel() == 0 or n_rows == 0:
         raise ValueError(f"{name}: bad shapes ids={ids.numel()} "
                          f"table={tuple(table.shape)}")
-    _check_aligned(table)
-    lib = _load_library()
+    check_aligned(table)
+    lib = library()
     dev = table.device
     ids32 = ids.to(torch.int32).contiguous()
     out = torch.empty((ids.numel(), n_slots), dtype=out_dtype, device=dev)
@@ -254,9 +261,9 @@ def _gather(ids, table, out_dtype, name, fn):
         rc = lib.ns_gather_rows(
             ids32.data_ptr(), table.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.bfloat16), ids.numel(), n_rows, n_slots,
-            _stream(dev),
+            stream(dev),
         )
-    _check_rc(rc, name)
+    check_rc(rc, name)
     fn.launches += 1
     return out
 

@@ -1,7 +1,7 @@
 """TorchIndex (nextsearch_tpu_torch/index/segment.py) on the CPU against the
 JAX DeviceIndex and the oracle: results, plans, pins, shortcuts, guard trips
-through the host rescue and the exact relaunch, multi-launch groups, and the
-dense table against the JAX device build."""
+through the host rescue and the exact relaunch, multi-launch groups, the
+unified launch, and the dense table against the JAX device build."""
 
 import numpy as np
 import pytest
@@ -222,7 +222,17 @@ def test_unported_configurations_raise(segs, monkeypatch, kw, env):
         TorchIndex(segs, config=_cfg(**kw), device="cpu")
 
 
-def test_unified_raises_at_launch(segs):
-    ti = TorchIndex(segs, config=_cfg(unified=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
-        ti.search_batch([[("w0001", 1.0), ("w0180", 0.7)]], k=10)
+@pytest.mark.parametrize("fast", [True, False])
+def test_unified_launch_matches_reference(segs, fast, monkeypatch):
+    """unified=True takes the unified-totals launch (K5) on single
+    launches; results equal the JAX unified index's and the oracle's."""
+    import nextsearch_tpu_torch.index.segment as seg_mod
+
+    calls = []
+    unified_impl = seg_mod.unified_impl
+    monkeypatch.setattr(seg_mod, "unified_impl",
+                        lambda *a, **kw: calls.append(kw["fast_heavy"])
+                        or unified_impl(*a, **kw))
+    di, ti = _pair(segs, unified=True, fast_heavy=fast)
+    check(ti, segs, MIXED + _random_queries(49), di)
+    assert calls == [fast]

@@ -322,11 +322,9 @@ def test_packed_multi_matches(segs):
 
 
 @pytest.mark.parametrize("kw,msg", [
-    (dict(w_max=1024), "K4"),
     (dict(h_bf16=True), "h_bf16"),
     (dict(prof_skip=("light",)), "prof_skip"),
     (dict(heavy_direct=False), "v2"),
-    (dict(H2=0), "v4"),
 ])
 def test_unported_paths_raise(di, kw, msg):
     plan, U = di.plan_sparse(_queries(24, n=4))
