@@ -7,6 +7,11 @@ locate/doc_info) is numpy and is inherited unchanged. What touched jax is
 overridden here: the uploads in __init__, the launch, the gather with its
 guard relaunch, the row top-k build and hbm_bytes.
 
+DeviceConfig.dense_rows_bf16 is the reference's bf16-rows configuration:
+dense rows stored bf16 (half the bytes, so twice the rows fit
+dense_max_bytes), one row per (heavy term, segment), a heavy bucket table
+for the v2 rescore, no fast mode and no row top-k shortcut.
+
 Results come back through a non-blocking copy into a pinned host buffer and
 a CUDA event that search_batch_gather waits on, so the host can plan and
 launch the next batch while this one runs.
@@ -87,10 +92,6 @@ class TorchIndex(DeviceIndex):
                 f"mode={dcfg.mode!r} is not ported (only 'sparse'): "
                 "ROADMAP queue 1 item 6"
             )
-        if dcfg.dense_rows_bf16:
-            raise NotImplementedError(
-                "bf16 dense rows are not ported: ROADMAP queue 1 item 12"
-            )
         for env, default, what, item in _UNPORTED_ENV:
             if os.environ.get(env, default) != default:
                 raise NotImplementedError(
@@ -142,10 +143,12 @@ class TorchIndex(DeviceIndex):
             else (1 << 62)
         )
         self._sparse = True
-        self._heavy_direct = True
+        # bf16 rows rescore by v2 over the postings, which needs one
+        # contiguous posting range per row: rows stay per (term, segment)
+        self._heavy_direct = not dcfg.dense_rows_bf16
         # multi-segment: one merged dense row per heavy term (see the
         # reference's DeviceIndex.__init__ for why this is bit-exact)
-        self._merged_heavy = len(self.segments) > 1
+        self._merged_heavy = self._heavy_direct and len(self.segments) > 1
 
         self.lex: List[Dict[str, Tuple[int, int, int]]] = []
         post_doc_parts: List[np.ndarray] = []
@@ -178,9 +181,10 @@ class TorchIndex(DeviceIndex):
         tick("lexicons")
 
         # highest-df terms win the capped dense-row budget
+        row_bytes = (2 if dcfg.dense_rows_bf16 else 4) * self.n_slots
         row_cap = min(
             dcfg.dense_max_rows,
-            max(0, int(dcfg.dense_max_bytes // (4 * self.n_slots))),
+            max(0, int(dcfg.dense_max_bytes // row_bytes)),
         )
         self._gdf: Dict[str, int] = {}
         heavy_entries: List[Tuple[int, int, str]] = []
@@ -263,7 +267,6 @@ class TorchIndex(DeviceIndex):
             counts = np.concatenate(counts_parts, axis=0)
             light_max_occ = int(counts.max(initial=0))
             np.cumsum(counts, axis=1, out=light_host[:base_row, 1:])
-        self._bs_depth = max(2, int(max(light_max_occ, 1)).bit_length())
         tick("light_rows")
 
         post_doc = (
@@ -290,10 +293,15 @@ class TorchIndex(DeviceIndex):
             h_starts = [h[3] for h in heavy]
             h_dfs = [h[0] for h in heavy]
             h_rows = None
-        self.dense_rows = build_heavy_on_device(
+        self.dense_rows, self.bucket_pos, heavy_max_occ = build_heavy_on_device(
             self.post_doc, self.post_score, h_starts, h_dfs, rows=h_rows,
             n_rows_pad=nd1_pad, n_slots=self.n_slots,
+            bf16=dcfg.dense_rows_bf16, with_buckets=not self._heavy_direct,
         )
+        # the rescore's binary search covers the fullest bucket of either
+        # table (the heavy one exists only with bf16 rows)
+        self._bs_depth = max(
+            2, int(max(heavy_max_occ, light_max_occ, 1)).bit_length())
         self.light_bucket_pos = torch.as_tensor(light_host, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -308,9 +316,12 @@ class TorchIndex(DeviceIndex):
 
     def _build_row_topk(self, post_doc_np=None, post_score_np=None) -> None:
         """Exact canonical top-k of the df-head dense rows, from the host
-        postings (the reference's default host path)."""
+        postings (the reference's default host path). None with bf16 rows,
+        as in the reference."""
         dcfg = self.config.device
         self._row_topk = None
+        if not self._heavy_direct:
+            return
         n = min(self.n_dense, dcfg.row_topk_rows)
         k = min(dcfg.row_topk_k, self.n_slots)
         if n > 0 and k > 0:
@@ -375,6 +386,7 @@ class TorchIndex(DeviceIndex):
                 queries = [queries[i] for i in perm]
         fast = (
             dcfg.fast_heavy
+            and self._heavy_direct
             and os.environ.get("NEXTSEARCH_FAST_HEAVY", "1") == "1"
         )
         use_compact = os.environ.get("NEXTSEARCH_COMPACT_HEAVY", "1") == "1"
@@ -414,6 +426,7 @@ class TorchIndex(DeviceIndex):
             n_slots=self.n_slots, K=K, K2=K2, C=C, block=block,
             bs_steps=self._bs_depth, nd=self.n_dense, nl=self.n_light,
             heavy_direct=self._heavy_direct, guard_eps=dcfg.fast_heavy_eps,
+            bucket_pos=self.bucket_pos,
         )
         tables = (self.post_doc, self.post_score, self.dense_rows,
                   self.light_bucket_pos, plan_dev)
@@ -513,8 +526,10 @@ class TorchIndex(DeviceIndex):
     def hbm_bytes(self) -> Dict[str, int]:
         """Device footprint of the serving index, bytes by component."""
         out: Dict[str, int] = {}
-        for name in ("post_doc", "post_score", "dense_rows", "light_bucket_pos"):
+        for name in ("post_doc", "post_score", "dense_rows", "bucket_pos",
+                     "light_bucket_pos"):
             arr = getattr(self, name)
-            out[name] = int(arr.numel() * arr.element_size())
+            if arr is not None:
+                out[name] = int(arr.numel() * arr.element_size())
         out["total"] = sum(out.values())
         return out

@@ -14,8 +14,9 @@ reference's order:
                 from the sub-block maxima; the guarded fast mode merges them
                 into one K2-wide pool and emits a per-query proof column
   rescore       bit-exact f32 re-accumulation in term-slot order
-                (exact_rescore_v5, or v4 when H2 is unset), then canonical
-                order and dedup
+                (exact_rescore_v5, or v4 when H2 is unset; v2, a binary
+                search over the heavy and light bucket tables, when the
+                dense rows are bf16), then canonical order and dedup
 
 With NEXTSEARCH_SELECT_PALLAS's window bound (w_max > 0) the light
 candidates come from the windowed selection kernel K4
@@ -31,8 +32,10 @@ descending sort and a slice. Multiplies and adds that the reference keeps
 separately rounded stay separate torch ops (eager torch does not contract
 them into FMAs).
 
-Paths the port does not carry yet raise NotImplementedError naming their
-ROADMAP item.
+``prof_skip`` drops named stages for stage attribution
+(nextsearch_tpu_torch/benchmarks/profile_serving.py); its results are
+wrong by design. Paths the port does not carry yet raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,10 +46,12 @@ import torch
 
 from .bm25 import PAD_DOC, canonical_sort, expand_chunks, f32_order_key
 from .heavy_kernels import (
-    CSUB, gather_rows, gather_rows_bf16, heavy_fused3, unified_fused,
+    CSUB, TILE, gather_bf16_rows, gather_rows, gather_rows_bf16, heavy_fused3,
+    unified_fused,
 )
 from .select_kernels import per_query_topk
 
+BUCKET_LOG2 = 3  # nextsearch_tpu/ops/bm25_sparse.py BUCKET_LOG2 (heavy table)
 LIGHT_BUCKET_LOG2 = 9  # nextsearch_tpu/ops/bm25_sparse.py LIGHT_BUCKET_LOG2
 # Largest window bound for which the reference selects light candidates
 # with K4 (bm25_sparse.py:1211); above it the flat sort runs, as there.
@@ -103,28 +108,35 @@ def light_entries(post_doc, post_score, starts, light_dfs, weights, *,
 
 
 def light_totals(post_doc, post_score, starts, light_dfs, weights, *, C: int,
-                 block: int, Q: int, n_slots: int):
+                 block: int, Q: int, n_slots: int, skip_sort: bool = False,
+                 skip_segsum: bool = False):
     """Flat per-(query, doc) light-term totals via sort + segmented sum.
 
     Returns (sq, sd, stot, last) sorted by (q, doc); stot at `last` lanes is
     the f32 sum of that (q, doc)'s light contributions in term-slot order
     (the stable sort keeps expansion order inside a group). Invalid lanes
-    carry q = Q, doc = n_slots and sort to the end."""
+    carry q = Q, doc = n_slots and sort to the end. skip_sort and
+    skip_segsum (stage attribution only; results are wrong) drop the sort
+    or the segmented sum, as the reference's prof_skip "lsort"/"segsum"."""
     doc, cq, valid, contrib = light_entries(
         post_doc, post_score, starts, light_dfs, weights,
         C=C, block=block, n_slots=n_slots,
     )
     qrow = torch.where(valid, cq, torch.full_like(cq, Q))
-    shift = max(int(n_slots).bit_length(), 1)
-    skey, order = torch.sort((qrow << shift) | doc, stable=True)
-    sc = contrib[order]
-    sq = skey >> shift
-    sd = skey & ((1 << shift) - 1)
+    if skip_sort:
+        sq, sd, sc = qrow, doc, contrib
+    else:
+        shift = max(int(n_slots).bit_length(), 1)
+        skey, order = torch.sort((qrow << shift) | doc, stable=True)
+        sc = contrib[order]
+        sq = skey >> shift
+        sd = skey & ((1 << shift) - 1)
     change = (sq[1:] != sq[:-1]) | (sd[1:] != sd[:-1])
     one = torch.ones((1,), dtype=torch.bool, device=sq.device)
     first = torch.cat([one, change])
     last = torch.cat([change, one])
-    stot = segmented_cumsum_bounded(sc, first, starts.shape[1])
+    stot = sc if skip_segsum else segmented_cumsum_bounded(
+        sc, first, starts.shape[1])
     return sq, sd, stot, last
 
 
@@ -214,11 +226,9 @@ def per_query_topk_flat(sq, score, payload, Q: int, k2: int, *,
 def heavy_candidates(H, smax_sq, k2: int, Q: int, n_slots: int):
     """Top-k2 doc slots per query from the per-sub-block maxima: a top
     doc's own sub-block max >= its score, so its sub-block is among the
-    top-k2 sub-blocks. H f32 [Q, n_slots]. Returns (vals, docs)."""
-    if H.dtype != torch.float32:
-        raise NotImplementedError(
-            "bf16 H (h_bf16) is not ported: ROADMAP queue 1 item 12"
-        )
+    top-k2 sub-blocks. H f32 or bf16 [Q, n_slots] (bf16 values widen to f32
+    exactly, as the reference's bit unpacking does). Returns (vals f32,
+    docs)."""
     n_sub = n_slots // CSUB
     smax = smax_sq.T[:, :n_sub]
     kt = min(k2, n_sub)
@@ -226,7 +236,7 @@ def heavy_candidates(H, smax_sq, k2: int, Q: int, n_slots: int):
     tidx = torch.sort(tidx, dim=1).values  # doc-ascending tie order
     tiles = H.view(Q, n_sub, CSUB)
     cand = torch.gather(tiles, 1, tidx[:, :, None].expand(-1, -1, CSUB))
-    flat = cand.reshape(Q, kt * CSUB)
+    flat = cand.reshape(Q, kt * CSUB).float()
     vals, pos = _stable_topk(flat, min(k2, kt * CSUB))
     base = torch.gather(tidx, 1, pos // CSUB) * CSUB
     docs = torch.where(vals > 0, base + pos % CSUB, torch.full_like(pos, PAD_DOC))
@@ -344,23 +354,78 @@ def exact_rescore_v5(post_doc, post_score, dense_rows, light_bucket_pos,
     return _accumulate(slot_dense, weights, dv, vl, nd)
 
 
-def _rescore(post_doc, post_score, dense_rows, light_bucket_pos, plan, cand,
-             *, n_slots: int, bs_steps: int, nd: int, nl: int, L2: int,
-             H2: int, lb_log2: int):
-    """Exact scores of the candidate slots (PAD_DOC -> 0) by v5, or by v4
-    when H2 is unset, as the reference chooses; returns (exact, safe_cand)."""
-    if L2 <= 0:
-        raise ValueError("heavy_direct rescore requires L2 > 0")
+def exact_rescore_v2(post_doc, post_score, bucket_pos, light_bucket_pos,
+                     starts, slot_dense, slot_light, weights, cand, *,
+                     bs_steps: int, nd: int, nl: int,
+                     lb_log2: int = LIGHT_BUCKET_LOG2):
+    """Bit-exact term-slot-order rescore of candidates (port of
+    exact_rescore_v2, the rescore of the bf16-dense-rows configuration):
+    every (query, term slot), heavy and light alike, binary-searches the
+    candidate in its doc-sorted posting range and reads the host f32 eager
+    score off the postings. The search starts from the candidate's bucket:
+    heavy slots through bucket_pos [ND+1, NBh+1] at 2^BUCKET_LOG2 doc
+    slots, light slots through light_bucket_pos at 2^lb_log2; bs_steps
+    covers the larger table's bucket occupancy."""
+    Q, T = starts.shape
+    P = post_doc.shape[0]
+    c = cand[:, None, :].to(torch.int64)
+    s = starts[:, :, None].to(torch.int64)
+    is_heavy = slot_dense[:, :, None] < nd
+    row = torch.where(is_heavy, slot_dense[:, :, None].to(torch.int64),
+                      torch.full_like(s, nd))
+    lrow = slot_light[:, :, None].to(torch.int64).clamp(0, nl)
+    cb = c >> BUCKET_LOG2
+    cbl = c >> lb_log2
+    lo = torch.where(is_heavy, bucket_pos[row, cb],
+                     light_bucket_pos[lrow, cbl]).to(torch.int64)
+    hi0 = torch.where(is_heavy, bucket_pos[row, cb + 1],
+                      light_bucket_pos[lrow, cbl + 1]).to(torch.int64)
+    hi = hi0
+    for _ in range(bs_steps):
+        mid = (lo + hi) // 2
+        v = post_doc[(s + mid).clamp(0, max(P - 1, 0))]
+        go_right = v < c
+        lo, hi = torch.where(go_right, mid + 1, lo), torch.where(go_right, hi, mid)
+    pos = (s + lo).clamp(0, max(P - 1, 0))
+    w = weights[:, :, None]
+    hit = (lo < hi0) & (post_doc[pos] == c) & (w != 0.0)
+    term = torch.where(hit, torch.abs(w * post_score[pos]),
+                       torch.zeros((), dtype=torch.float32, device=c.device))
+    acc = torch.zeros((Q, cand.shape[1]), dtype=torch.float32, device=c.device)
+    for t in range(T):
+        acc = acc + term[:, t]
+    return acc
+
+
+def _rescore(post_doc, post_score, dense_rows, bucket_pos, light_bucket_pos,
+             plan, cand, *, n_slots: int, bs_steps: int, nd: int, nl: int,
+             L2: int, H2: int, lb_log2: int, heavy_direct: bool):
+    """Exact scores of the candidate slots (PAD_DOC -> 0), by the rescore
+    the reference chooses: v5, or v4 when H2 is unset, off the f32 dense
+    rows (heavy_direct); v2 over the bucket tables otherwise. Returns
+    (exact, safe_cand)."""
     weights = plan[5].contiguous().view(torch.float32)
     safe_cand = cand.clamp(0, n_slots - 1)
-    args = (post_doc, post_score, dense_rows, light_bucket_pos, plan[0],
-            plan[2], plan[3], weights, safe_cand)
-    if H2 > 0:
-        exact = exact_rescore_v5(*args, bs_steps=bs_steps, nd=nd, nl=nl,
-                                 L2=L2, H2=H2, lb_log2=lb_log2)
+    if heavy_direct:
+        if L2 <= 0:
+            raise ValueError("heavy_direct rescore requires L2 > 0")
+        args = (post_doc, post_score, dense_rows, light_bucket_pos, plan[0],
+                plan[2], plan[3], weights, safe_cand)
+        if H2 > 0:
+            exact = exact_rescore_v5(*args, bs_steps=bs_steps, nd=nd, nl=nl,
+                                     L2=L2, H2=H2, lb_log2=lb_log2)
+        else:
+            exact = exact_rescore_v4(*args, bs_steps=bs_steps, nd=nd, nl=nl,
+                                     L2=L2, lb_log2=lb_log2)
     else:
-        exact = exact_rescore_v4(*args, bs_steps=bs_steps, nd=nd, nl=nl,
-                                 L2=L2, lb_log2=lb_log2)
+        if bucket_pos is None:
+            raise ValueError("exact_rescore_v2 needs the heavy bucket table "
+                             "(bucket_pos)")
+        exact = exact_rescore_v2(
+            post_doc, post_score, bucket_pos, light_bucket_pos, plan[0],
+            plan[2], plan[3], weights, safe_cand, bs_steps=bs_steps, nd=nd,
+            nl=nl, lb_log2=lb_log2,
+        )
     exact = torch.where(cand < n_slots, exact,
                         torch.zeros((), dtype=torch.float32, device=cand.device))
     return exact, safe_cand
@@ -375,10 +440,6 @@ def dedup_sorted(vals, docs):
     vals = torch.where(dup, torch.zeros_like(vals), vals)
     docs = torch.where(dup, torch.full_like(docs, PAD_DOC), docs)
     return canonical_sort(vals, docs)
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported: ROADMAP {item}")
 
 
 def heavy_operands(plan, rows: int, *, nd: int, U: int, use_compact: bool):
@@ -429,6 +490,20 @@ def _windowed(w_max: int) -> bool:
     return 0 < w_max <= SELECT_W_MAX
 
 
+# stage names prof_skip takes (the reference's, bm25_sparse.py:1017-1023,
+# and the three inside the light chain)
+PROF_STAGES = ("rowgather", "heavy_mm", "light", "hgather", "sort2",
+               "cand_heavy", "rescore", "lsort", "segsum", "lcount")
+
+
+def _compact_table(ids, dense_rows, *, fast: bool):
+    """The compact heavy table: K2 (f32 rows to bf16) for the fast launch,
+    K3 otherwise, over f32 or bf16 rows in their own type."""
+    if dense_rows.dtype == torch.bfloat16:
+        return gather_bf16_rows(ids, dense_rows)
+    return gather_rows_bf16(ids, dense_rows) if fast else gather_rows(ids, dense_rows)
+
+
 def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
                 n_slots: int, K: int, K2: int, C: int, block: int,
                 bs_steps: int, nd: int, nl: int, U: int,
@@ -436,75 +511,105 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
                 fast_heavy: bool = False, guard_eps: float = 2e-3,
                 w_max: int = 0, h_bf16: bool = False,
                 lb_log2: int = LIGHT_BUCKET_LOG2, L2: int = 0, H2: int = 0,
-                prof_skip: tuple = ()):
+                prof_skip: tuple = (), bucket_pos=None):
     """One sparse batch; returns packed f32 [Q, 2K+1] (vals | doc slots |
     found), plus the guard column ([Q, 2K+2]) when fast_heavy.
 
     Port of nextsearch_tpu/ops/bm25_sparse.py _packed_impl with
     use_pallas=True's kernel choices: the compact launch gathers the
-    batch's U distinct dense rows (K2 to bf16 under fast_heavy, else K3
-    f32) and runs K1 over them; the full-table launch runs K1 over the
-    stored table. 0 < w_max <= 32768 (the batch's window bound, set under
-    NEXTSEARCH_SELECT_PALLAS=1) selects the light candidates with K4, whose
-    values are exact; otherwise a flat sort does (quantized keys under
-    fast_heavy). fast_heavy is the guarded one-pass mode: guard column 0
-    means the caller must relaunch exactly (TorchIndex does).
+    batch's U distinct dense rows (K2 to bf16 under fast_heavy over f32
+    rows, else K3 in the rows' own type) and runs K1 over them; the
+    full-table launch runs K1 over the stored table. 0 < w_max <= 32768
+    (the batch's window bound, set under NEXTSEARCH_SELECT_PALLAS=1)
+    selects the light candidates with K4, whose values are exact; otherwise
+    a flat sort does (quantized keys under fast_heavy). fast_heavy is the
+    guarded one-pass mode: guard column 0 means the caller must relaunch
+    exactly (TorchIndex does). h_bf16 under fast_heavy stores H as bf16
+    rounded up, which every reader widens back to f32 exactly.
+    heavy_direct=False (bf16 dense rows) rescores with exact_rescore_v2
+    over bucket_pos. prof_skip names stages of PROF_STAGES to drop (stage
+    attribution only: the results are wrong); each dropped stage yields
+    what the reference yields in its place.
 
-    post_doc int32 [P], post_score f32 [P], dense_rows f32 [rows, n_slots],
-    light_bucket_pos int32 [NL+1, NBl+1], plan int32 [7, Q, T] (rows:
-    starts, light dfs, slot_dense, slot_light, slot_compact, weight bits,
-    unique dense row ids)."""
-    if h_bf16:
-        _unported("bf16 H storage (h_bf16)", "queue 1 item 12")
-    if prof_skip:
-        _unported("prof_skip stage attribution", "queue 1 item 4")
-    if not heavy_direct:
-        _unported("exact_rescore_v2 (bf16 dense rows)", "queue 1 item 12")
-    if dense_rows.dtype != torch.float32:
-        _unported("bf16 dense rows", "queue 1 item 12")
-
+    post_doc int32 [P], post_score f32 [P], dense_rows f32 or bf16
+    [rows, n_slots], light_bucket_pos int32 [NL+1, NBl+1], plan int32
+    [7, Q, T] (rows: starts, light dfs, slot_dense, slot_light,
+    slot_compact, weight bits, unique dense row ids), bucket_pos int32
+    [ND+1, NBh+1] or None."""
+    unknown = set(prof_skip) - set(PROF_STAGES)
+    if unknown:
+        raise ValueError(f"prof_skip: unknown stages {sorted(unknown)}")
     dev = plan.device
     starts = plan[0]
     light_dfs = plan[1]
     weights = plan[5].contiguous().view(torch.float32)
     Q = starts.shape[0]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    h_dtype = torch.bfloat16 if (fast_heavy and h_bf16) else torch.float32
 
     mix, ids = heavy_operands(plan, dense_rows.shape[0], nd=nd, U=U,
                               use_compact=use_compact)
-    if use_compact:
-        if fast_heavy:
-            table = gather_rows_bf16(ids, dense_rows)
+    if "heavy_mm" in prof_skip:
+        tiles_pad = (n_slots // TILE + 7) // 8 * 8
+        H = torch.zeros((Q, n_slots), dtype=h_dtype, device=dev)
+        smax_sq = torch.zeros((tiles_pad * (TILE // CSUB), Q),
+                              dtype=torch.float32, device=dev)
+        heavy_found = torch.zeros((Q,), dtype=torch.int64, device=dev)
+    else:
+        if use_compact:
+            if "rowgather" in prof_skip:
+                table = torch.zeros((ids.numel(), n_slots),
+                                    dtype=dense_rows.dtype, device=dev)
+            else:
+                table = _compact_table(ids, dense_rows, fast=fast_heavy)
         else:
-            table = gather_rows(ids, dense_rows)
-        H, smax_sq, cnt_tq = heavy_fused3(mix, table, fast=fast_heavy)
-    else:
-        H, smax_sq, cnt_tq = heavy_fused3(mix, dense_rows, fast=fast_heavy)
-    heavy_found = cnt_tq.sum(dim=0).to(torch.int64)
+            table = dense_rows
+        H, smax_sq, cnt_tq = heavy_fused3(mix, table, fast=fast_heavy,
+                                          h_dtype=h_dtype)
+        heavy_found = cnt_tq.sum(dim=0).to(torch.int64)
 
-    sq, sd, stot, last = light_totals(
-        post_doc, post_score, starts, light_dfs, weights,
-        C=C, block=block, Q=Q, n_slots=n_slots,
-    )
-    sd_clip = sd.clamp(0, n_slots - 1)
-    hval = H[sq.clamp(0, Q - 1), sd_clip]
-    valid_last = last & (sq < Q)
-    light_only = valid_last & (hval == 0.0)
-    found = heavy_found + per_query_counts(sq, light_only, Q)
-    sel_score = torch.where(valid_last, stot + hval, zero)
-    if _windowed(w_max):
-        # each query's lanes are one window of the (q, doc)-sorted stream,
-        # doc-ascending inside it: K4's lowest-index tie rule is the sort
-        # path's (score desc, doc asc)
-        bounds = torch.searchsorted(
-            sq, torch.arange(Q + 1, dtype=sq.dtype, device=dev))
-        lvals, gidx = per_query_topk(sel_score, bounds, K2)
-        ldocs = torch.where(lvals > 0, sd[gidx], torch.full_like(gidx, PAD_DOC))
+    if "light" in prof_skip:
+        found = heavy_found
+        ldocs = torch.full((Q, K2), PAD_DOC, dtype=torch.int64, device=dev)
+        lvals = torch.zeros((Q, K2), dtype=torch.float32, device=dev)
     else:
-        ldocs, lvals = per_query_topk_flat(
-            sq, sel_score, sd, Q, K2, quantized=fast_heavy,
+        sq, sd, stot, last = light_totals(
+            post_doc, post_score, starts, light_dfs, weights,
+            C=C, block=block, Q=Q, n_slots=n_slots,
+            skip_sort="lsort" in prof_skip, skip_segsum="segsum" in prof_skip,
         )
-    hvals, hdocs = heavy_candidates(H, smax_sq, K2, Q, n_slots)
+        sd_clip = sd.clamp(0, n_slots - 1)
+        if "hgather" in prof_skip:
+            hval = torch.zeros(sq.shape, dtype=torch.float32, device=dev)
+        else:
+            hval = H[sq.clamp(0, Q - 1), sd_clip].float()
+        valid_last = last & (sq < Q)
+        light_only = valid_last & (hval == 0.0)
+        if "lcount" in prof_skip:
+            found = heavy_found
+        else:
+            found = heavy_found + per_query_counts(sq, light_only, Q)
+        sel_score = torch.where(valid_last, stot + hval, zero)
+        if "sort2" in prof_skip:
+            ldocs = torch.full((Q, K2), PAD_DOC, dtype=torch.int64, device=dev)
+            lvals = torch.zeros((Q, K2), dtype=torch.float32, device=dev)
+        elif _windowed(w_max):
+            # each query's lanes are one window of the (q, doc)-sorted
+            # stream, doc-ascending inside it: K4's lowest-index tie rule is
+            # the sort path's (score desc, doc asc)
+            bounds = torch.searchsorted(
+                sq, torch.arange(Q + 1, dtype=sq.dtype, device=dev))
+            lvals, gidx = per_query_topk(sel_score, bounds, K2)
+            ldocs = torch.where(lvals > 0, sd[gidx], torch.full_like(gidx, PAD_DOC))
+        else:
+            ldocs, lvals = per_query_topk_flat(
+                sq, sel_score, sd, Q, K2, quantized=fast_heavy,
+            )
+    if "cand_heavy" in prof_skip:
+        hdocs = torch.full((Q, K2), PAD_DOC, dtype=torch.int64, device=dev)
+        hvals = torch.zeros((Q, K2), dtype=torch.float32, device=dev)
+    else:
+        hvals, hdocs = heavy_candidates(H, smax_sq, K2, Q, n_slots)
     if fast_heavy:
         allv = torch.cat([lvals, hvals], dim=1)
         alld = torch.cat([ldocs, hdocs], dim=1)
@@ -517,11 +622,15 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
         cand = torch.cat([ldocs, hdocs], dim=1)
     cand = torch.where(cand >= n_slots, torch.full_like(cand, PAD_DOC), cand)
 
-    exact, safe_cand = _rescore(
-        post_doc, post_score, dense_rows, light_bucket_pos, plan, cand,
-        n_slots=n_slots, bs_steps=bs_steps, nd=nd, nl=nl, L2=L2, H2=H2,
-        lb_log2=lb_log2,
-    )
+    if "rescore" in prof_skip:
+        safe_cand = cand.clamp(0, n_slots - 1)
+        exact = (cand < n_slots).to(torch.float32)
+    else:
+        exact, safe_cand = _rescore(
+            post_doc, post_score, dense_rows, bucket_pos, light_bucket_pos,
+            plan, cand, n_slots=n_slots, bs_steps=bs_steps, nd=nd, nl=nl,
+            L2=L2, H2=H2, lb_log2=lb_log2, heavy_direct=heavy_direct,
+        )
     sval, sdoc = canonical_sort(exact, safe_cand)
     sval, sdoc = dedup_sorted(sval, sdoc)
 
@@ -533,7 +642,8 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
     if fast_heavy:
         # eps composes the one-pass dot's bound with the quantized
         # selection key's truncation (2^-(22 - qbits)), as the reference
-        # does; K4's values are exact and add no term
+        # does; K4's values are exact and add no term, and the bf16 H store
+        # rounds up, so its values bound the f32 sums and add none either
         qbits = (Q + 1).bit_length()
         e2 = 0.0 if _windowed(w_max) else 2.0 ** -(22 - qbits)
         cols.append(_guard_column(sval, tau, K, guard_eps + e2 * (1.0 + guard_eps)))
@@ -562,31 +672,24 @@ def unified_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
                  n_slots: int, K: int, K2: int, C: int, block: int,
                  bs_steps: int, nd: int, nl: int, U: int,
                  heavy_direct: bool = True, fast_heavy: bool = False,
-                 guard_eps: float = 2e-3, L2: int = 0):
+                 guard_eps: float = 2e-3, L2: int = 0, bucket_pos=None):
     """One sparse batch through the unified-totals pipeline; packed output
     as packed_impl's ([Q, 2K+1], plus the guard column under fast_heavy).
 
     Port of nextsearch_tpu/ops/bm25_sparse.py bm25_search_sparse_unified
     with use_pallas=True's kernel choices: the compact table by K2 (bf16,
-    fast) or K3 (f32), the light entries sorted by (doc, q) and folded into
-    the product by K5, whose tile counts give `found` exactly; ONE K2-wide
-    candidate pool off the totals' sub-block maxima; the v4 rescore and the
-    canonical order (no dedup: a doc enters the one pool once). Under
-    fast_heavy a trip means the caller relaunches the exact packed kernel.
-    The light bucket granularity is the default one."""
-    if not heavy_direct:
-        _unported("exact_rescore_v2 (bf16 dense rows)", "queue 1 item 12")
-    if dense_rows.dtype != torch.float32:
-        _unported("bf16 dense rows", "queue 1 item 12")
-    if L2 <= 0:
-        raise ValueError("heavy_direct rescore requires L2 > 0")
+    fast, over f32 rows) or K3 (the rows' own type), the light entries
+    sorted by (doc, q) and folded into the product by K5, whose tile counts
+    give `found` exactly; ONE K2-wide candidate pool off the totals'
+    sub-block maxima; the v4 rescore (v2 over bucket_pos when heavy_direct
+    is off, as with bf16 dense rows) and the canonical order (no dedup: a
+    doc enters the one pool once). Under fast_heavy a trip means the caller
+    relaunches the exact packed kernel. The light bucket granularity is the
+    default one."""
     Q = plan.shape[1]
     mix, ids = heavy_operands(plan, dense_rows.shape[0], nd=nd, U=U,
                               use_compact=True)
-    if fast_heavy:
-        table = gather_rows_bf16(ids, dense_rows)
-    else:
-        table = gather_rows(ids, dense_rows)
+    table = _compact_table(ids, dense_rows, fast=fast_heavy)
     sd, sq, sv = unified_entries(post_doc, post_score, plan, C=C,
                                  block=block, n_slots=n_slots)
     totals, smax_sq, cnt_tq = unified_fused(mix, table, sd, sq, sv,
@@ -597,9 +700,9 @@ def unified_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
     del totals
     cand = torch.where(cand >= n_slots, torch.full_like(cand, PAD_DOC), cand)
     exact, safe_cand = _rescore(
-        post_doc, post_score, dense_rows, light_bucket_pos, plan, cand,
-        n_slots=n_slots, bs_steps=bs_steps, nd=nd, nl=nl, L2=L2, H2=0,
-        lb_log2=LIGHT_BUCKET_LOG2,
+        post_doc, post_score, dense_rows, bucket_pos, light_bucket_pos, plan,
+        cand, n_slots=n_slots, bs_steps=bs_steps, nd=nd, nl=nl, L2=L2, H2=0,
+        lb_log2=LIGHT_BUCKET_LOG2, heavy_direct=heavy_direct,
     )
     sval, sdoc = canonical_sort(exact, safe_cand)
     cols = [

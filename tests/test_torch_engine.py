@@ -125,6 +125,15 @@ from nextsearch_tpu_torch.engine import Engine
 from nextsearch_tpu_torch.index.segment import TorchIndex
 from nextsearch_tpu_torch.tools.synthetic import build_corpus, sample_queries
 import nextsearch_tpu_torch.api.server
+import importlib
+import pkgutil
+import nextsearch_tpu_torch.benchmarks as probes
+
+names = [m.name for m in pkgutil.iter_modules(probes.__path__)]
+assert {"kernel_probe", "profile_sparse", "profile_serving", "probe_fusedmm",
+        "probe_bf16h", "probe_candsel"} <= set(names), names
+for name in names:
+    importlib.import_module(f"nextsearch_tpu_torch.benchmarks.{name}")
 
 seg, probs = build_corpus(3000, 400)
 cfg = EngineConfig(device=DeviceConfig(mode="sparse", posting_block=64,

@@ -212,7 +212,7 @@ def test_group_launches(segs):
 
 @pytest.mark.parametrize("kw,env", [
     (dict(mode="fused"), None),
-    (dict(dense_rows_bf16=True), None),
+    (dict(mode="exact"), None),
     ({}, ("NEXTSEARCH_LIGHT_BUILD", "device")),
 ])
 def test_unported_configurations_raise(segs, monkeypatch, kw, env):

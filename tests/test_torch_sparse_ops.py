@@ -322,11 +322,11 @@ def test_packed_multi_matches(segs):
 
 
 @pytest.mark.parametrize("kw,msg", [
-    (dict(h_bf16=True), "h_bf16"),
-    (dict(prof_skip=("light",)), "prof_skip"),
-    (dict(heavy_direct=False), "v2"),
+    # a flat light stream of 512 * 64 lanes takes the 2-level sort2
+    (dict(fast_heavy=True, C=512), "SORT2_2LEVEL"),
 ])
-def test_unported_paths_raise(di, kw, msg):
+def test_unported_paths_raise(di, kw, msg, monkeypatch):
+    monkeypatch.setenv("NEXTSEARCH_SORT2_2LEVEL", "1")
     plan, U = di.plan_sparse(_queries(24, n=4))
     st = _statics(di, plan, U)
     st.update(kw)
