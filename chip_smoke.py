@@ -25,11 +25,18 @@ non-zero before the last line:
    fast (one-pass bf16) H against exact H. Then the probe kernels at the
    probes' shapes: K6 (fast with f32 H, fast with bf16-up H, exact over a
    bf16 table) and each P6 variant at probe_fusedmm's (Q 512, uc 384,
-   n_slots 999,424, bf16 table), cnt bit-exact, H and smax within
-   2 * uc * 2^-24 relative (two orders of a uc-term positive sum), a bf16
-   H bit-equal to the rounding of the kernel's own f32 H; P1-P5 at
+   n_slots 999,424, bf16 table), whose dense mixes take the tensor-core
+   dense kernel: cnt bit-exact, H and smax within tc_rtol (the tensor
+   cores round once per 16-term step), a bf16 H bit-equal to the rounding
+   of the kernel's own f32 H; the two dense kernels for bf16 operands
+   (tensor cores, FFMA loop) compared and timed in turns on K6's launch; K1
+   on the same dense mix, fast and f32-exact over the table widened to f32
+   (the FFMA kernels, bit-equal to each other, timed in turns); P1-P5 at
    mosaic_probe's on seeded random operands, plus a [37, 300] transpose,
-   as benchmarks/kernel_probe.py holds them.
+   as benchmarks/kernel_probe.py holds them. K4, P1-P5 and mix_lists (all
+   under 0.1 ms) are timed over many launches per event pair, as the
+   wrapper (ms) and as the bare C entry point on preallocated outputs
+   (raw_ms).
 4. main path: batch 512 / k 10 through search_batch_async /
    search_batch_gather, the launch counters reset before each launch and
    read after it, each launch spot-checked bit-exact against the oracle:
@@ -113,20 +120,63 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def timed(fn, device, reps: int) -> float:
-    """Median milliseconds of fn() over reps runs (CUDA events on a card,
-    the host clock in a CPU rehearsal)."""
+def timed(fn, device, reps: int, inner: int = 1) -> float:
+    """Median milliseconds of one fn() over reps timings, each spanning
+    `inner` back-to-back calls (CUDA events on a card, the host clock in a
+    CPU rehearsal)."""
     from nextsearch_tpu_torch.benchmarks.common import event_ms
 
     if device.type == "cuda":
-        return event_ms(fn, reps)
+        return event_ms(fn, reps, inner=inner)
     fn()  # warm
     times = []
     for _ in range(reps):
         t = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t) * 1e3)
+        for _ in range(inner):
+            fn()
+        times.append((time.perf_counter() - t) * 1e3 / inner)
     return statistics.median(times)
+
+
+def inner_for(fn, device) -> int:
+    """How many calls of fn an event pair should span (about 2 ms of device
+    work): 1 for a multi-millisecond kernel, some hundreds for the probes.
+    A short call is first timed 50 to a pair, since one call alone reads as
+    the host's time to issue it."""
+    from nextsearch_tpu_torch.benchmarks.common import pick_inner
+
+    once = timed(fn, device, 3)
+    if once >= 0.5:
+        return pick_inner(once)
+    return pick_inner(timed(fn, device, 3, 50))
+
+
+def timed_small(device, reps: int, kern, plain, library=None, raw=None) -> dict:
+    """Times of a kernel under ~0.1 ms: `ms` (its wrapper: what a caller
+    pays, allocations and argument copies included), `plain_ms`,
+    `library_ms` and `raw_ms` (the C entry point alone on preallocated
+    outputs: what the kernel takes), all over the same `inner` calls per
+    event pair. The operands of these kernels fit in the card's 50 MB L2
+    and are not flushed between calls."""
+    inner = inner_for(raw or kern, device)
+    return dict(ms=timed(kern, device, reps, inner),
+                plain_ms=timed(plain, device, reps, inner),
+                library_ms=library and timed(library, device, reps, inner),
+                raw_ms=raw and timed(raw, device, reps, inner), inner=inner)
+
+
+def raw_entry(entry: str, dev, *args):
+    """A call of the kernel library's C entry point on fixed arguments
+    (tensors already allocated) and the stream current now: the kernel
+    without its wrapper."""
+    from nextsearch_tpu_torch.ops import cuda_build
+
+    fn = getattr(cuda_build.library(), entry)
+    stream = cuda_build.stream(dev)
+
+    def call():
+        cuda_build.check_rc(fn(*args, stream), entry)
+    return call
 
 
 # Published peaks of one NVIDIA H100 SXM (data sheet; dense rates, 700 W):
@@ -209,12 +259,20 @@ def check_mix_lists(mixes, device, reps: int) -> dict:
         say(f"mix lists ({label}): Q={mix.shape[0]} ND={mix.shape[1]} "
             f"L={got[1].shape[1]} entries per row max={int(got[0].max())} "
             f"mean={float(got[0].float().mean()):.3f}")
+        if rnd:
+            mixb = hk.mix_lists(mix, rnd, with_bf16=True)[3]
+            if not torch.equal(_bits(mixb), _bits(hk.mix_bf16_padded_ref(mix))):
+                raise AssertionError(f"mix_lists ({label}): bf16 rows differ")
     mix, rnd = next(iter(mixes.values()))
     got = hk.mix_lists(mix, rnd)
-    return dict(max_abs_err=0.0,
-                ms=timed(lambda: hk.mix_lists(mix, rnd), device, reps),
-                plain_ms=timed(lambda: hk.mix_lists_ref(mix, rnd), device, reps),
-                library_ms=None, **bound(nbytes(mix, *got)))
+    raw = None
+    if device.type == "cuda":
+        raw = raw_entry("ns_mix_lists", device, mix.data_ptr(), int(rnd),
+                        *mix.shape, got[1].shape[1], *(t.data_ptr() for t in got),
+                        None, 0)
+    return dict(max_abs_err=0.0, **bound(nbytes(mix, *got)), **timed_small(
+        device, reps, lambda: hk.mix_lists(mix, rnd),
+        lambda: hk.mix_lists_ref(mix, rnd), raw=raw))
 
 
 def build_index(device, n_docs: int, vocab: int, batch: int, n_batches: int,
@@ -393,7 +451,7 @@ def check_probe_kernels(device, reps: int, shape: dict):
     mix, dense = probe_fusedmm.operands(device, **shape)
     q, uc = mix.shape
     n_sub = dense.shape[1] // 128
-    rtol = 2 * uc * 2.0 ** -24  # two orders of a uc-term positive sum
+    rtol = tc_rtol(uc)
     say(f"probe shapes: Q={q} uc={uc} n_slots={dense.shape[1]} bf16 table, "
         f"rtol {rtol:.3g}")
     out = {}
@@ -432,6 +490,8 @@ def check_probe_kernels(device, reps: int, shape: dict):
         exact_plain_ms=timed(lambda: hk.heavy_fused_ref(mix, dense, fast=False),
                              device, reps),
     )
+    out["heavy_fused"].update(dense_ab(mix, dense, f32, device, reps, rtol))
+    out["heavy_fused3_dense"] = k1_dense(mix, dense, f32, device, reps, rtol)
     p6, err = {}, 0.0
     for label, kw in probe_fusedmm.VARIANTS.items():
         got = hk.heavy_fused_variant(mix, dense, **kw)
@@ -460,18 +520,110 @@ def check_probe_kernels(device, reps: int, shape: dict):
         bound_by=p6["full_bound_by"], **p6)
     args = kernel_probe.inputs(device)
     library = probe_library(args)
+    raws = kernel_probe.raw_calls(args) if device.type == "cuda" else {}
     for name, (label, kern, plain, tol) in kernel_probe.calls(args).items():
         got = kern()
         lib = library[name]
-        out[name] = dict(max_abs_err=kernel_probe.check(got, plain(), tol),
-                         ms=timed(kern, device, reps),
-                         plain_ms=timed(plain, device, reps),
-                         library_ms=lib[0] and timed(lib[0], device, reps),
-                         **bound(lib[1] + nbytes(got), lib[2]))
+        err = kernel_probe.check(got, plain(), tol)
+        raw = None
+        if name in raws:
+            raw, raw_out = raws[name]
+            raw()
+            if not torch.equal(raw_out, got):
+                raise AssertionError(f"{name}: raw launch differs from wrapper")
+        out[name] = dict(max_abs_err=err, **bound(lib[1] + nbytes(got), lib[2]),
+                         **timed_small(device, reps, kern, plain, lib[0], raw))
     wide = out.pop("transpose_wide")
     out["transpose"].update(prefixed("wide_", wide))
     for name, v in out.items():
         say(f"kernel {name}: " + fmt(v))
+    return out
+
+
+def tc_rtol(nd: int) -> float:
+    """Tolerance of the tensor-core dense kernel's H and smax against the
+    plain version and the FFMA loop. All multiply the same bf16 values
+    (exact products) and add nd non-negative terms in f32; the tensor cores
+    round (toward zero) once per 16-term mma step, not once per term, so
+    their sum is within nd / 16 steps of 2^-23 of the true one. Doubled for
+    the other side's own rounding, plus 8 steps for short contractions;
+    the worst case of any order would be nd * 2^-23."""
+    return (nd / 8 + 8) * 2.0 ** -23
+
+
+def dense_ab(mix, dense, tc, device, reps: int, rtol: float) -> dict:
+    """The two dense kernels on K6's fast launch, in one process on the
+    same operands: the FFMA loop's outputs against the tensor-core
+    kernel's (tc: cnt and H > 0 bit for bit, H and smax within rtol), then
+    their times in turns (old, new, new, old)."""
+    import torch
+
+    from nextsearch_tpu_torch.benchmarks import probe_dense
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+
+    def launch(ffma: bool):
+        with mock.patch.object(hk, "_DENSE_FFMA", ffma):
+            return hk.heavy_fused(mix, dense, fast=True)
+
+    old = launch(True)
+    rel = probe_dense.compare(tc, old, rtol)
+    fin = torch.isfinite(old[1])
+    _rel_check("dense A/B smax (tensor cores against FFMA)",
+               ((tc[1][fin], old[1][fin]),), rtol)
+    del old, fin
+    times = {"ffma": [], "tc": []}
+    for ffma in (True, False, False, True):
+        times["ffma" if ffma else "tc"].append(
+            timed(lambda: launch(ffma), device, reps))
+    say(f"dense A/B, K6 fast (old, new, new, old): FFMA loop {times['ffma']} "
+        f"ms, tensor cores {times['tc']} ms; max rel diff of H {rel:.3g}")
+    return dict(ab_ffma_ms=times["ffma"], ab_tc_ms=times["tc"],
+                tc_vs_ffma_h_max_rel_err=rel)
+
+
+def k1_dense(mix, dense, k6, device, reps: int, rtol: float) -> dict:
+    """K1 on a dense mix at K6's shapes: bf16 operands (fast; the
+    tensor-core kernel, bit-equal to K6's launch k6) and f32 exact over
+    the same table widened to f32 (the FFMA loop; bound by operations),
+    each against its plain version, with bound, plain and library time."""
+    import torch
+
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+
+    out = {}
+    wide = dense.float()
+    # the FFMA loop against cuBLAS: two orders of a uc-term positive sum
+    ffma_rtol = 2 * mix.shape[1] * 2.0 ** -24
+    for key, tab, fast in (("fast_", dense, True), ("exact_f32_", wide, False)):
+        got = hk.heavy_fused3(mix, tab, fast=fast)
+        err = _heavy_check(f"K1 dense {key}", got,
+                           hk.heavy_fused3_ref(mix, tab, fast=fast),
+                           rtol if fast else ffma_rtol)
+        if fast and not all(torch.equal(a, b) for a, b in zip(got, k6)):
+            raise AssertionError("K1 dense fast differs from K6 fast")
+        out.update(prefixed(key, dict(
+            max_abs_err=err, **heavy_bound(mix, tab, fast, got))))
+        if not fast:
+            # the two FFMA kernels of f32-exact mode: the same fmaf chains,
+            # so the same bits; then their times in turns
+            def launch(ffma: bool):
+                with mock.patch.object(hk, "_DENSE_FFMA", ffma):
+                    return hk.heavy_fused3(mix, tab, fast=False)
+
+            if not all(torch.equal(a, b) for a, b in zip(got, launch(True))):
+                raise AssertionError("K1 dense exact: the two FFMA kernels differ")
+            ab = {True: [], False: []}
+            for ffma in (True, False, False, True):
+                ab[ffma].append(timed(lambda: launch(ffma), device, reps))
+            say(f"dense A/B, K1 f32 exact (old, new, new, old): older loop "
+                f"{ab[True]} ms, cp.async-fed 8 x 8 loop {ab[False]} ms")
+            out.update(exact_f32_ab_old_ms=ab[True], exact_f32_ab_new_ms=ab[False])
+        del got
+        out.update(prefixed(key, dict(
+            ms=timed(lambda: hk.heavy_fused3(mix, tab, fast=fast), device, reps),
+            plain_ms=timed(lambda: hk.heavy_fused3_ref(mix, tab, fast=fast),
+                           device, reps),
+            library_ms=heavy_library_ms(mix, tab, fast, device, reps))))
     return out
 
 
@@ -597,12 +749,21 @@ def check_select(ti, plan, mix_c, t_bf16, device, reps):
     got = sk.per_query_topk(sel, bounds, k2)
     if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
         raise AssertionError("K4 differs from plain")
+    raw = None
+    if device.type == "cuda":
+        b64 = bounds.to(torch.int64).contiguous()
+        raw_out = [torch.zeros_like(t) for t in got]
+        raw = raw_entry("ns_per_query_topk", device, sel.data_ptr(),
+                        b64.data_ptr(), sel.numel(), q, k2,
+                        *(t.data_ptr() for t in raw_out))
+        raw()
+        if not all(torch.equal(a, b) for a, b in zip(raw_out, exp)):
+            raise AssertionError("K4 raw launch differs from plain")
     return dict(
         max_abs_err=float((got[0] - exp[0]).abs().max()),
-        ms=timed(lambda: sk.per_query_topk(sel, bounds, k2), device, reps),
-        plain_ms=timed(lambda: sk.per_query_topk_ref(sel, bounds, k2),
-                       device, reps),
-        library_ms=None, **bound(nbytes(sel, bounds, *got)),
+        **bound(nbytes(sel, bounds, *got)),
+        **timed_small(device, reps, lambda: sk.per_query_topk(sel, bounds, k2),
+                      lambda: sk.per_query_topk_ref(sel, bounds, k2), raw=raw),
     )
 
 
@@ -1153,6 +1314,8 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
     say(f"total {time.perf_counter() - ph.t0:.1f}s on {card}")
     kern["heavy_fused3"].update(prefixed(
         "bf16_rows_exact_", kern.pop("heavy_fused3_bf16_rows")))
+    kern["heavy_fused3"].update(prefixed(
+        "dense_", kern.pop("heavy_fused3_dense")))
     line = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                  launches=launches[name], **kern[name]) for name in KERNELS]
     for entry in line:

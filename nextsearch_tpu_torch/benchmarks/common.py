@@ -31,9 +31,13 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, reps: int = 10, *, warm: int = 1) -> float:
-    """Median milliseconds of fn() over reps runs, each timed by a pair of
-    CUDA events on the current stream (host launch gaps included)."""
+def event_ms(fn, reps: int = 10, *, warm: int = 1, inner: int = 1) -> float:
+    """Median milliseconds of one fn() over reps timings, each a pair of CUDA
+    events on the current stream around `inner` back-to-back calls, divided
+    by inner. With inner = 1 a call shorter than the host takes to issue it
+    reads as the host's time; with enough calls between the events the
+    device queue stays full and the reading is the device's time per call
+    (or the host's per call, where the host is the slower of the two)."""
     for _ in range(warm):
         fn()
     times = []
@@ -41,11 +45,26 @@ def event_ms(fn, reps: int = 10, *, warm: int = 1) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+# An event pair should span about this much device work.
+SPAN_MS = 2.0
+INNER_MAX = 500
+
+
+def pick_inner(once_ms: float) -> int:
+    """How many calls an event pair should span, from one call's time: 1
+    for a call of SPAN_MS or more, else enough to fill SPAN_MS, at most
+    INNER_MAX."""
+    if once_ms >= SPAN_MS:
+        return 1
+    return max(1, min(INNER_MAX, int(-(-SPAN_MS // max(once_ms, 1e-6)))))
 
 
 def row(name: str, ms: float) -> str:

@@ -90,6 +90,51 @@ def calls(args: dict) -> dict:
     }
 
 
+def raw_calls(args: dict) -> dict:
+    """name -> (call, output): each probe's C entry point on preallocated
+    tensors, the kernel without its wrapper's allocations and argument
+    copies, for timing. CUDA operands only."""
+    from ..ops.cuda_build import check_rc, library, stream
+
+    lib = library()
+    dev = args["nt_dot"][0].device
+
+    def entry(name, out, *a):
+        fn = getattr(lib, name)
+        s = stream(dev)  # the stream current now
+
+        def call():
+            check_rc(fn(*a, s), name)
+        return call, out
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    a, b = args["nt_dot"]
+    e, off = args["row_copy"]
+    wq, wv, wd = args["window_op"]
+    (r,) = args["reshape_copy"]
+    o1, o2, o3 = empty(Q, TILE), empty(8, e.shape[1]), empty(Q, TILE)
+    o4 = empty(512, Q)
+    out = {
+        "nt_dot": entry("ns_probe_nt_dot", o1, a.data_ptr(), b.data_ptr(),
+                        o1.data_ptr(), Q, TILE, W),
+        "row_copy": entry("ns_probe_row_copy", o2, e.data_ptr(), off.data_ptr(),
+                          o2.data_ptr(), e.shape[0], 8, e.shape[1]),
+        "window_op": entry("ns_probe_window_op", o3, wq.data_ptr(),
+                           wv.data_ptr(), wd.data_ptr(), o3.data_ptr(), Q, TILE,
+                           wv.numel()),
+        "reshape_copy": entry("ns_probe_copy", o4, r.data_ptr(), o4.data_ptr(),
+                              r.numel()),
+    }
+    for name in ("transpose", "transpose_wide"):
+        (t,) = args[name]
+        o = empty(t.shape[1], t.shape[0])
+        out[name] = entry("ns_probe_transpose", o, t.data_ptr(), o.data_ptr(),
+                          *t.shape)
+    return out
+
+
 def check(got: torch.Tensor, exp: torch.Tensor, rtol: float) -> float:
     """Max abs error of got against exp; raises past rtol (0: bit for
     bit)."""

@@ -11,14 +11,21 @@
 // ns_mix_lists     the pre-pass of K1, K5, K6 and P6 (no TPU counterpart):
 //                  each mix row's nonzero entries, after the bf16 rounding
 //                  the product applies, as a count and (column, value) lists
-//                  in ascending column order.
+//                  in ascending column order; where the product rounds mix,
+//                  also the whole row rounded to bf16 and zero-padded to a
+//                  multiple of 32 columns, the tensor-core kernel's A operand.
 // ns_heavy_fused3  replaces nextsearch_tpu/ops/heavy_pallas.py
 //                  heavy_fused3_pallas (K1) and heavy_fused_pallas (K6): H =
 //                  mix @ table with the per-128-doc sub-block max (smax) and
 //                  the per-2048-doc tile count of H > 0 (cnt) computed from
-//                  the same accumulators, H stored f32 or bf16 rounded up.
-//                  The TPU's 2D (K6) and 3D (K1) kernels differ only in how
-//                  Mosaic tiles the table; on Hopper both are this kernel.
+//                  the same sums, H stored f32 or bf16 rounded up. The TPU's
+//                  2D (K6) and 3D (K1) kernels differ only in how Mosaic
+//                  tiles the table; on Hopper both are these kernels: a
+//                  gather over each query's nonzero mix entries, and for
+//                  64-query blocks with long lists a dense product, on the
+//                  tensor cores (heavy_dense_tc_kernel) where the operands
+//                  are bf16 values and as an fp32 FFMA loop
+//                  (heavy_dense_exact_kernel) in f32-exact mode.
 // ns_heavy_variant replaces benchmarks/probe_fusedmm.py fused_variant (P6):
 //                  the one-pass product with the epilogue, the smax store or
 //                  the H store taken out, or H stored bf16 to nearest.
@@ -88,12 +95,16 @@ __device__ __forceinline__ uint32_t bf16_rn_bits(float x) {
   return *reinterpret_cast<const uint16_t*>(&b);
 }
 
-// Four consecutive H values of one query row.
+// Four consecutive H values of one query row, as a streaming store
+// (evict-first): H is 2 GB a launch, written once and read back only in
+// small parts by later kernels, and would otherwise push the table tiles
+// that the other q-blocks are about to read out of the 50 MB L2.
 template <int HST>
 __device__ __forceinline__ void store_h4(void* h, long long i, float a, float b,
                                          float c, float d) {
   if constexpr (HST == H_F32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(h) + i) = make_float4(a, b, c, d);
+    __stcs(reinterpret_cast<float4*>(static_cast<float*>(h) + i),
+           make_float4(a, b, c, d));
   } else {
     uint2 raw;
     if constexpr (HST == H_BF16_UP) {
@@ -103,7 +114,7 @@ __device__ __forceinline__ void store_h4(void* h, long long i, float a, float b,
       raw.x = bf16_rn_bits(a) | (bf16_rn_bits(b) << 16);
       raw.y = bf16_rn_bits(c) | (bf16_rn_bits(d) << 16);
     }
-    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(h) + i) = raw;
+    __stcs(reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(h) + i), raw);
   }
 }
 
@@ -147,13 +158,18 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
 // mix), in ascending column order: each 32-column step compacts its nonzero
 // lanes with a ballot and a population count of the lanes below. count[q] is
 // the row's whole nonzero count, which may exceed the capacity L: entries
-// past L are dropped, and the product takes its dense loop for that row's
-// block. Slots past the count are zeroed. Bound: one read of mix.
+// past L are dropped, and the product takes its dense kernel for that row's
+// block. Slots past the count are zeroed. With mixb (ROUND only) it also
+// writes the rounded row as bf16 into mixb[q, 0:ND_pad], zero past ND (ND_pad
+// a multiple of 32): the A operand of heavy_dense_tc_kernel, which then
+// copies it with cp.async and never touches the f32 mix. Bound: one read of
+// mix.
 template <bool ROUND>
 __global__ void mix_lists_kernel(const float* __restrict__ mix, int Q, int ND,
                                  int L, int* __restrict__ count,
                                  int* __restrict__ cols,
-                                 float* __restrict__ vals) {
+                                 float* __restrict__ vals,
+                                 __nv_bfloat16* __restrict__ mixb, int ND_pad) {
   const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (q >= Q) return;  // whole warps leave together
@@ -161,10 +177,15 @@ __global__ void mix_lists_kernel(const float* __restrict__ mix, int Q, int ND,
   int* qcols = cols + (long long)q * L;
   float* qvals = vals + (long long)q * L;
   int n = 0;
-  for (int c0 = 0; c0 < ND; c0 += 32) {
+  const int c_end = mixb != nullptr ? ND_pad : ND;
+  for (int c0 = 0; c0 < c_end; c0 += 32) {
     const int c = c0 + lane;
     float v = c < ND ? row[c] : 0.f;
-    if constexpr (ROUND) v = round_bf16(v);
+    if constexpr (ROUND) {
+      v = round_bf16(v);
+      if (mixb != nullptr && c < ND_pad)
+        mixb[(long long)q * ND_pad + c] = __float2bfloat16_rn(v);
+    }
     const bool nz = v != 0.f;
     const unsigned int m = __ballot_sync(0xffffffffu, nz);
     const int at = n + __popc(m & ((1u << lane) - 1u));
@@ -200,10 +221,10 @@ __global__ void mix_lists_kernel(const float* __restrict__ mix, int Q, int ND,
 // to part[sub * n_qblk + qb] and the counts to a scratch cnt, which
 // variant_reduce_kernel folds per tile.
 //
-// Two kernels compute the tiles, each taking the 64-query blocks (q-blocks)
-// that the mix lists' counts (mix_lists_kernel) give it, on the device,
-// never by a host sync; both are launched every time, and each leaves the
-// other's q-blocks alone:
+// Three kernels compute the tiles, each taking the 64-query blocks
+// (q-blocks) that the mix lists' counts (mix_lists_kernel) give it, on the
+// device, never by a host sync; a launch runs the gather kernel and one of
+// the dense kernels, and each leaves the other's q-blocks alone:
 //
 // - heavy_gather_kernel, for a q-block whose queries all have at most L <=
 //   GATHER_CUT nonzero mix entries: for each entry of a query a lane adds
@@ -215,31 +236,49 @@ __global__ void mix_lists_kernel(const float* __restrict__ mix, int Q, int ND,
 //   read it names), so it keeps few registers for many warps per SM, and
 //   works two queries at a time with up to GCHUNK entries' reads in flight
 //   each.
-// - heavy_dense_kernel, for the other q-blocks (e.g. the probes' dense
-//   torch.rand mixes): the contraction over the ND table rows in BK-row
-//   stages through shared memory, TM x TN f32 sums per thread.
+// - heavy_dense_tc_kernel, for the other q-blocks (e.g. the probes' dense
+//   torch.rand mixes) where both operands are bf16 values (FAST, or a bf16
+//   table): the product on the tensor cores, described above the kernel.
+// - heavy_dense_exact_kernel, for the other q-blocks in f32-exact mode (f32
+//   table, !FAST), where no tensor-core form gives fp32 products: an FFMA
+//   loop fed by cp.async, described above the kernel.
+// - heavy_dense_kernel, the first port's FFMA loop (the contraction over
+//   the ND table rows in BK-row stages through shared memory, TM x TN f32
+//   sums per thread, load - barrier - multiply - barrier), runs only behind
+//   the entry points' `ffma` argument, in place of either dense kernel, so
+//   that one process can time and compare them on the same operands;
+//   nothing selects it when a launch fails.
 //
-// Both run over the grid of (sub-block, q-block) tiles, q-blocks minor, so
+// All run over a grid of (sub-block, q-block) tiles, q-blocks minor, so
 // the q-blocks of one sub-block run together and each table slab the batch
 // uses comes from device memory once and from L2 after; a block whose
-// q-block is the other kernel's reads the 64 counts and leaves. The dense
-// loop keeps its own kernel so that its register budget (about 64, 3-4
-// blocks per SM) does not rise to hold the gather's state; a persistent
-// grid over the dense q-blocks only was tried and measured slower on the
-// card for both paths.
+// q-block is another kernel's reads its counts and leaves. The dense
+// kernels are separate so that their register budgets do not rise to hold
+// the gather's state; a persistent grid over the dense q-blocks only was
+// tried and measured slower on the card for both paths.
 //
-// Both give the same bits: the gather runs the dense loop's
-// fmaf(mix[k], table[k][d], acc) chain over the same k in the same
-// ascending order, only without the k where mix[k] is 0, and for finite
-// table values fmaf(0, x, acc) == acc (acc starts at +0 and never becomes
-// -0, since an exact zero sum rounds to +0).
+// The gather and the two FFMA dense loops give the same bits: the gather
+// runs the loops' fmaf(mix[k], table[k][d], acc) chain over the same k in
+// the same ascending order, only without the k where mix[k] is 0, and for
+// finite table values fmaf(0, x, acc) == acc (acc starts at +0 and never
+// becomes -0, since an exact zero sum rounds to +0). The tensor-core kernel
+// multiplies the same bf16 values (each product exact in f32) but sums them
+// in the tensor cores' order and with their accumulation, which rounds
+// toward zero once per 16-term mma step, so its H agrees with the other two
+// within a tolerance ((ND / 8 + 8) * 2^-23 relative in the tests: ND / 16
+// steps of 2^-23 over non-negative terms, doubled for the other side), while
+// H > 0, and with it cnt, is the same in all three: the operands are
+// non-negative, so a sum is positive exactly when one product is. No
+// reported score comes from H: the exact rescore recomputes them.
 //
 // Bound: device memory for the gather. It needs the table rows the batch's
 // mix uses (each once) and H written once; at the 1M-doc serving shapes
 // that is ~0.8 GB of bf16 (fast) or ~1.5 GB of f32 (exact) table plus 2 GB
-// of f32 H, 0.85-1.1 ms at 3.35 TB/s, and ~2.6 GFLOP of FMAs. The dense
-// loop, at the probes' dense mixes, is bound by FP32 FFMA throughput;
-// tensor cores (wgmma) are a later step for it.
+// of f32 H, 0.85-1.1 ms at 3.35 TB/s, and ~2.6 GFLOP of FMAs. The FFMA
+// dense loop, at the probes' dense mixes, is bound by FP32 FFMA throughput
+// (393 GFLOP at Q 512, ND 384, 1M docs: 5.9 ms at 67 TFLOP/s); on the
+// tensor cores the same product is 0.40 ms, and the kernel is bound by the
+// 2 GB H store.
 //
 // ENTRIES (K5, the unified-totals kernel): the TPU kernel folded the light
 // entries into its tile with 3-way bf16-split one-hot matmuls, because the
@@ -287,7 +326,8 @@ struct Outs {
 
 // The epilogue of one query row of a tile from its f32 sums (this lane's 4
 // docs in a0..a3): the H store, then the sub-block max and positive count as
-// warp reductions (the warp holds the row's 128 docs). Counts are small
+// warp reductions (the warp holds the row's 128 docs; the values are not
+// NaN). Counts are small
 // integers, so the f32 atomic add into the tile's count is exact in any
 // order. Under P6's EPI_REDUCED the row's max folds into bmax instead of
 // its smax store. q is the same in the whole warp.
@@ -308,13 +348,17 @@ __device__ __forceinline__ void row_epilogue(float a0, float a1, float a2,
       store_h4<HST>(o.h, at, 0.f, 0.f, 0.f, 0.f);
   }
   if (!epi_on) return;
-  float mx = fmaxf(fmaxf(a0, a1), fmaxf(a2, a3));
-  int c = (a0 > 0.f) + (a1 > 0.f) + (a2 > 0.f) + (a3 > 0.f);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    c += __shfl_xor_sync(0xffffffffu, c, off);
-  }
+  // One redux.sync each, in place of five shuffle steps (an SM issues one
+  // warp shuffle a clock, and a launch has 4M rows): the max through an
+  // order-preserving integer key, the sign bit flipped for non-negative
+  // values and all bits for negative ones.
+  const uint32_t bits = __float_as_uint(fmaxf(fmaxf(a0, a1), fmaxf(a2, a3)));
+  const uint32_t key = __reduce_max_sync(
+      0xffffffffu, bits ^ ((bits >> 31) ? 0xffffffffu : 0x80000000u));
+  const float mx =
+      __uint_as_float(key ^ ((key >> 31) ? 0x80000000u : 0xffffffffu));
+  const int c = __reduce_add_sync(
+      0xffffffffu, (a0 > 0.f) + (a1 > 0.f) + (a2 > 0.f) + (a3 > 0.f));
   if (q < Q && tx == 0) {
     if (per_query) o.smax[sub * Q + q] = mx;
     else bmax = fmaxf(bmax, mx);
@@ -343,23 +387,25 @@ __device__ __forceinline__ void block_max(float bmax, const Outs& o,
   }
 }
 
-// K5: add the sub-block's light entries of this q-block into the tile Ts
-// (see ENTRIES above). Every thread calls it between two barriers.
-__device__ __forceinline__ void add_entries(float (*Ts)[CSUB], const Entries& ent,
+// K5: add the sub-block's light entries of the tile's ROWS queries into the
+// tile Ts (rows LD floats apart; see ENTRIES above). Every thread calls it
+// between two barriers.
+template <int ROWS, int LD>
+__device__ __forceinline__ void add_entries(float* Ts, const Entries& ent,
                                             long long sub, int q0, long long d0) {
   const int e0 = ent.off[sub];
   const int e1 = ent.off[sub + 1];
-  for (int e = e0 + threadIdx.x; e < e1; e += THREADS) {
+  for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
     const int d = ent.doc[e];
     const int q = ent.q[e];
     // other query blocks' entries; the sentinel doc n_slots lies past every
     // sub-block, so it never lands on a tile's padding docs
-    if (q < q0 || q >= q0 + BM || d < d0 || d >= d0 + CSUB) continue;
+    if (q < q0 || q >= q0 + ROWS || d < d0 || d >= d0 + CSUB) continue;
     if (e > e0 && ent.doc[e - 1] == d && ent.q[e - 1] == q) continue;
     float run = ent.val[e];
     for (int j = e + 1; j < e1 && ent.doc[j] == d && ent.q[j] == q; ++j)
       run += ent.val[j];
-    Ts[q - q0][d - d0] += run;
+    Ts[(q - q0) * LD + (d - d0)] += run;
   }
 }
 
@@ -392,7 +438,7 @@ heavy_gather_kernel(const TabT* __restrict__ table, const Lists lists,
     for (int i = tid; i < BM * CSUB / 4; i += THREADS)
       t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
-    add_entries(Ts, ent, sub, q0, d0);
+    add_entries<BM, CSUB>(&Ts[0][0], ent, sub, q0, d0);
     __syncthreads();
   }
 
@@ -538,7 +584,7 @@ heavy_dense_kernel(const float* __restrict__ mix, const TabT* __restrict__ table
       *reinterpret_cast<float4*>(&Ts[ty * TM + i][tx * TN]) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     __syncthreads();
-    add_entries(Ts, ent, sub, q0, d0);
+    add_entries<BM, CSUB>(&Ts[0][0], ent, sub, q0, d0);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -554,6 +600,443 @@ heavy_dense_kernel(const float* __restrict__ mix, const TabT* __restrict__ table
                                q0 + ty * TM + i, Q, sub, d0, tx, n_slots, out,
                                bmax);
   block_max<VARIANT>(bmax, out, sub, qb, n_qblk);
+}
+
+// The dense product on the tensor cores, for bf16 operands.
+//
+// Replaces, for dense mixes, the bodies of the TPU kernels K1 _make_kernel3,
+// K5 _make_unified_kernel and K6 _make_kernel
+// (nextsearch_tpu/ops/heavy_pallas.py) and P6 (benchmarks/probe_fusedmm.py
+// fused_variant), which run the product on the MXU, one bf16 pass in fast
+// mode. Both operands are bf16 values, so every product is exact in f32 and
+// only the order and rounding of the f32 sums differ from the FFMA loop.
+//
+// Bound: bytes. At K6's shapes (Q 512, ND 384, 1M docs) the product is 393
+// GFLOP, 0.40 ms at the bf16 peak, against 2.05 GB of f32 H to store and
+// 0.77 GB of table to read, 0.85 ms at 3.35 TB/s. What the design does
+// about it:
+//
+// - A block computes 128 queries (two q-blocks) x 128 docs (one selection
+//   sub-block), so that the table tile is read from L2 once per two
+//   q-blocks: with 64-query tiles the L2 reads of the operands (9 GB at
+//   K6's shapes) cost more than the H store.
+// - The operands come through a ring of TC_STAGES stages of TC_BK
+//   contraction rows, filled by cp.async (16 bytes a thread; rows past Q or
+//   ND are zero-filled by a copy of size 0, never read), so copies are in
+//   flight while the product runs. A is the bf16 mix that the pre-pass
+//   wrote (mixb, [Q, ND_pad] row-major); B is the table, [ND, n_slots]
+//   row-major, i.e. doc-contiguous, which mma's "col" operand takes through
+//   ldmatrix.trans. An f32 table (FAST) cannot be copied asynchronously: it
+//   passes through registers, rounded to bf16 on the way. Shared-memory
+//   rows are padded by 16 bytes so that the 8 rows of an ldmatrix fall into
+//   8 different bank groups.
+// - The product is mma.sync.m16n8k16 (bf16 in, f32 out) fed by ldmatrix:
+//   8 warps as 2 x 4, a warp holding 64 queries x 32 docs in 64 registers.
+//   The kernel is bound by bytes, and mma.sync's share of the tensor cores'
+//   rate covers 393 GFLOP in well under the 0.85 ms of bytes. wgmma, whose
+//   products run asynchronously beside the warps' other work, would need
+//   the doc-contiguous table tile in a swizzled layout behind a transposing
+//   descriptor; it is the next step where the product and the stores are to
+//   overlap inside one block.
+// - The epilogue does not run from the fragments (a row's 128 docs are
+//   spread over 4 warps and 4 lanes of each): the tile is staged in shared
+//   memory (the ring's, free by then), K5's entries are added there, and
+//   then a warp takes whole query rows: 16 bytes a lane, 512 contiguous
+//   bytes of H a warp, and the row's max and positive count by shuffles,
+//   exactly K1's row_epilogue, so smax is the max of the f32 values H is
+//   stored from and cnt their positive count. Two blocks fit an SM (about
+//   125 registers, 76 KB of shared memory). Measured on an H100 at K6's
+//   shapes the launch takes 2.0 ms, of which the product alone is 1.5: the
+//   two phases of co-resident blocks hardly overlap. Other tiles (64 x 64
+//   or 32 x 32 a warp, 64-row stages) read the same within 5%, and a
+//   persistent block per SM that stores the previous tile's rows between
+//   the next tile's mma steps was 20-35% slower (half the warps per SM), so
+//   it was not kept.
+constexpr int TC_BM = 2 * BM;           // queries per block
+constexpr int TC_BK = 32;               // contraction rows per stage
+constexpr int TC_STAGES = 4;
+constexpr int TC_WM = 2;                // warps along the queries
+constexpr int TC_WN = 4;                // warps along the docs
+constexpr int TC_WARPS = TC_WM * TC_WN;
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int TC_MT = TC_BM / TC_WM / 16;  // 16-query mma tiles per warp
+constexpr int TC_NT = CSUB / TC_WN / 8;    // 8-doc mma tiles per warp
+constexpr int TC_A_LD = TC_BK + 8;      // bf16 per A row in shared memory
+constexpr int TC_B_LD = CSUB + 8;       // bf16 per B row
+constexpr int TC_T_LD = CSUB + 8;       // f32 per row of the staged tile
+constexpr int TC_A_BYTES = TC_BM * TC_A_LD * 2;
+constexpr int TC_B_BYTES = TC_BK * TC_B_LD * 2;
+constexpr int TC_STAGE_BYTES = TC_A_BYTES + TC_B_BYTES;
+constexpr int TC_RING_BYTES = TC_STAGES * TC_STAGE_BYTES;
+constexpr int TC_TILE_BYTES = TC_BM * TC_T_LD * 4;
+constexpr int TC_SMEM_BYTES =
+    TC_RING_BYTES > TC_TILE_BYTES ? TC_RING_BYTES : TC_TILE_BYTES;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory to shared memory, or 16 zero bytes when !ok
+// (the source is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a (16 x 16, row-major fragments) * b (16 x 8, "col" fragments).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Which of a 128-query tile's two q-blocks hold a list longer than L (the
+// dense kernels' tiles): the others are the gather kernel's, computed by
+// the tile's block but never stored. Every thread calls it (it holds two
+// barriers); false when neither half is dense.
+__device__ __forceinline__ bool dense_halves(const Lists& lists, int q0, int Q,
+                                             bool& lo, bool& hi) {
+  const int tid = threadIdx.x;
+  const bool longer = tid < TC_BM && q0 + tid < Q &&
+                      __ldg(lists.cnt + q0 + tid) > lists.L;
+  lo = __syncthreads_or(longer && tid < BM) != 0;
+  hi = __syncthreads_or(longer && tid >= BM) != 0;
+  return lo || hi;
+}
+
+// The epilogue of a 128 x 128 tile staged in shared memory (Ts, rows
+// TC_T_LD floats apart, written by the whole block just before): K5's
+// entries are added there, then each warp takes whole query rows (the first
+// half of the warps the low q-block's, the second half the high one's): 16
+// bytes a lane, 512 contiguous bytes of H a warp, and the row's max and
+// positive count by shuffles (row_epilogue). Every thread of a TC_THREADS
+// block calls it; returns the thread's share of P6's tile maximum.
+template <bool ENTRIES, int HST, bool VARIANT>
+__device__ __forceinline__ float staged_epilogue(float* Ts, const Entries& ent,
+                                                 const Outs& out, bool dense_lo,
+                                                 bool dense_hi, int q0, int Q,
+                                                 long long sub,
+                                                 long long n_slots) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long d0 = sub * CSUB;
+  __syncthreads();
+  if constexpr (ENTRIES) {
+    add_entries<TC_BM, TC_T_LD>(Ts, ent, sub, q0, d0);
+    __syncthreads();
+  }
+  float bmax = __int_as_float(0xff800000);  // -inf
+  if (warp < TC_WARPS / 2 ? dense_lo : dense_hi) {
+    constexpr int ROWS = TC_BM / TC_WARPS;
+#pragma unroll 4
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = warp * ROWS + i;
+      const float4 v = *reinterpret_cast<const float4*>(Ts + r * TC_T_LD + lane * TN);
+      row_epilogue<HST, VARIANT>(v.x, v.y, v.z, v.w, q0 + r, Q, sub, d0, lane,
+                                 n_slots, out, bmax);
+    }
+  }
+  return bmax;
+}
+
+template <typename TabT, bool ENTRIES, int HST, bool VARIANT>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+heavy_dense_tc_kernel(const __nv_bfloat16* __restrict__ mixb, int ND_pad,
+                      const TabT* __restrict__ table, const Lists lists,
+                      const Entries ent, const Outs out, int Q, int ND,
+                      long long n_slots, int n_qblk) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_tc = (n_qblk + 1) / 2;
+  const int qb2 = blockIdx.x % n_tc;
+  const long long sub = blockIdx.x / n_tc;
+  const int q0 = qb2 * TC_BM;
+  const long long d0 = sub * CSUB;
+
+  bool dense_lo, dense_hi;
+  if (!dense_halves(lists, q0, Q, dense_lo, dense_hi)) return;
+
+  const uint32_t ring = smem_addr(tc_smem);
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * TC_BK;
+    const uint32_t sa = ring + slot * TC_STAGE_BYTES;
+    const uint32_t sb = sa + TC_A_BYTES;
+#pragma unroll
+    for (int i = 0; i < TC_BM * TC_BK / 8 / TC_THREADS; ++i) {
+      const int c = tid + i * TC_THREADS;
+      const int r = c / (TC_BK / 8);  // 16-byte chunks of 8 values
+      const int ch = c % (TC_BK / 8);
+      const bool ok = q0 + r < Q;
+      cp_async16(sa + (r * TC_A_LD + ch * 8) * 2,
+                 mixb + (long long)(ok ? q0 + r : 0) * ND_pad + k0 + ch * 8, ok);
+    }
+    if constexpr (sizeof(TabT) == 2) {
+#pragma unroll
+      for (int i = 0; i < TC_BK * CSUB / 8 / TC_THREADS; ++i) {
+        const int c = tid + i * TC_THREADS;
+        const int r = c >> 4;  // CSUB / 8 = 16 chunks a row
+        const int ch = c & 15;
+        const bool ok = k0 + r < ND;
+        cp_async16(sb + (r * TC_B_LD + ch * 8) * 2,
+                   table + (long long)(ok ? k0 + r : 0) * n_slots + d0 + ch * 8,
+                   ok);
+      }
+    } else {
+      // f32 rows rounded to bf16 on their way through registers
+      unsigned char* bs = tc_smem + slot * TC_STAGE_BYTES + TC_A_BYTES;
+#pragma unroll
+      for (int i = 0; i < TC_BK * CSUB / 4 / TC_THREADS; ++i) {
+        const int c = tid + i * TC_THREADS;
+        const int r = c >> 5;  // CSUB / 4 = 32 float4 a row
+        const int ch = c & 31;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < ND)
+          v = __ldg(reinterpret_cast<const float4*>(
+                        table + (long long)(k0 + r) * n_slots + d0) + ch);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+        uint2 raw;
+        raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+        raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(bs + (r * TC_B_LD + ch * 4) * 2) = raw;
+      }
+    }
+  };
+
+  float acc[TC_MT][TC_NT][4];
+#pragma unroll
+  for (int i = 0; i < TC_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < TC_NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int wm = warp / TC_WN;  // the warp's 16 * TC_MT queries
+  const int wn = warp % TC_WN;  // and its 8 * TC_NT docs
+  const int n_k = ND_pad / TC_BK;
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < n_k) load_stage(s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    // stage kt has landed (this thread's copies, then everyone's), and every
+    // warp is done with stage kt - 1, whose slot the next copies take
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(TC_STAGES - 2) : "memory");
+    __syncthreads();
+    if (kt + TC_STAGES - 1 < n_k)
+      load_stage((kt + TC_STAGES - 1) % TC_STAGES, kt + TC_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const uint32_t sa = ring + (kt % TC_STAGES) * TC_STAGE_BYTES;
+    const uint32_t sb = sa + TC_A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      uint32_t a[TC_MT][4], b[TC_NT / 2][4];
+#pragma unroll
+      for (int mt = 0; mt < TC_MT; ++mt)
+        ldmatrix_x4(a[mt],
+                    sa + ((wm * TC_MT * 16 + mt * 16 + (lane & 15)) * TC_A_LD +
+                          kk + (lane >> 4) * 8) * 2);
+#pragma unroll
+      for (int np = 0; np < TC_NT / 2; ++np)
+        ldmatrix_x4_trans(b[np],
+                          sb + ((kk + (lane & 15)) * TC_B_LD + wn * TC_NT * 8 +
+                                np * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+      for (int mt = 0; mt < TC_MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < TC_NT; ++nt)
+          mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
+                   b[nt >> 1][(nt & 1) * 2 + 1]);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // the ring is free: stage the tile in its memory
+
+  float* Ts = reinterpret_cast<float*>(tc_smem);
+  {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < TC_MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < TC_NT; ++nt) {
+        float* p = Ts + (wm * TC_MT * 16 + mt * 16 + g) * TC_T_LD +
+                   wn * TC_NT * 8 + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(p + 8 * TC_T_LD) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+  }
+  const float bmax = staged_epilogue<ENTRIES, HST, VARIANT>(
+      Ts, ent, out, dense_lo, dense_hi, q0, Q, sub, n_slots);
+  if constexpr (VARIANT) {
+    if (out.epi == EPI_REDUCED) {
+      // each dense q-block's tile maximum, as block_max writes it
+      __shared__ float wmax[TC_WARPS];
+      if (lane == 0) wmax[warp] = bmax;
+      __syncthreads();
+      const int qb = qb2 * 2 + tid;
+      if (tid < 2 && qb < n_qblk && (tid ? dense_hi : dense_lo)) {
+        float m = wmax[tid * (TC_WARPS / 2)];
+        for (int w = 1; w < TC_WARPS / 2; ++w)
+          m = fmaxf(m, wmax[tid * (TC_WARPS / 2) + w]);
+        out.part[sub * n_qblk + qb] = m;
+      }
+    }
+  }
+}
+
+// The dense product in f32-exact mode (f32 table, !FAST): fp32 products
+// have no tensor-core form that gives these bits, so this is an FFMA loop,
+// and it keeps the bits of the gather: each sum runs fmaf(mix[k],
+// table[k][d], acc) over ascending k. Bound: operations (FP32 FFMA). What it
+// changes against heavy_dense_kernel is the feed: a 128 x 128 tile with 8 x
+// 8 sums a thread (4 16-byte shared-memory reads per 64 FFMAs in place of 3
+// per 32), the operands in a ring of EX_STAGES cp.async stages in place of
+// load - barrier - multiply - barrier (mix by 4-byte copies, stored
+// k-major: its rows are not 16-byte aligned when ND is odd), and the tile's
+// epilogue from shared memory, as the tensor-core kernel's. Measured on an
+// H100 at K6's shapes over an f32 table: 10.2-10.6 ms against the older
+// loop's 11.4-11.7 (cuBLAS fp32: 8.2; the FFMA bound: 5.9); 8- and 32-row
+// stages and one block per SM without spills read the same within 5%, so
+// the feed is no longer what holds it back.
+constexpr int EX_BK = 16;
+constexpr int EX_STAGES = 3;
+constexpr int EX_A_LD = TC_BM + 4;  // f32 per k row of the mix stage
+constexpr int EX_A_BYTES = EX_BK * EX_A_LD * 4;
+constexpr int EX_B_BYTES = EX_BK * CSUB * 4;
+constexpr int EX_STAGE_BYTES = EX_A_BYTES + EX_B_BYTES;
+constexpr int EX_SMEM_BYTES = EX_STAGES * EX_STAGE_BYTES > TC_TILE_BYTES
+                                  ? EX_STAGES * EX_STAGE_BYTES
+                                  : TC_TILE_BYTES;
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+template <bool ENTRIES, int HST>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+heavy_dense_exact_kernel(const float* __restrict__ mix,
+                         const float* __restrict__ table, const Lists lists,
+                         const Entries ent, const Outs out, int Q, int ND,
+                         long long n_slots, int n_qblk) {
+  static_assert(TC_THREADS == 256, "16 x 16 threads of 8 x 8 sums");
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const int tid = threadIdx.x;
+  const int n_tc = (n_qblk + 1) / 2;
+  const int qb2 = blockIdx.x % n_tc;
+  const long long sub = blockIdx.x / n_tc;
+  const int q0 = qb2 * TC_BM;
+  const long long d0 = sub * CSUB;
+  bool dense_lo, dense_hi;
+  if (!dense_halves(lists, q0, Q, dense_lo, dense_hi)) return;
+
+  const uint32_t ring = smem_addr(tc_smem);
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * EX_BK;
+    const uint32_t sa = ring + slot * EX_STAGE_BYTES;
+    const uint32_t sb = sa + EX_A_BYTES;
+#pragma unroll
+    for (int i = 0; i < TC_BM * EX_BK / TC_THREADS; ++i) {
+      const int c = tid + i * TC_THREADS;
+      const int m = c / EX_BK;  // neighbouring threads along a mix row
+      const int k = c % EX_BK;
+      const bool ok = q0 + m < Q && k0 + k < ND;
+      cp_async4(sa + (k * EX_A_LD + m) * 4,
+                mix + (ok ? (long long)(q0 + m) * ND + k0 + k : 0), ok);
+    }
+#pragma unroll
+    for (int i = 0; i < EX_BK * CSUB / 4 / TC_THREADS; ++i) {
+      const int c = tid + i * TC_THREADS;
+      const int r = c >> 5;  // CSUB / 4 = 32 chunks a row
+      const int ch = c & 31;
+      const bool ok = k0 + r < ND;
+      cp_async16(sb + (r * CSUB + ch * 4) * 4,
+                 table + (long long)(ok ? k0 + r : 0) * n_slots + d0 + ch * 4, ok);
+    }
+  };
+
+  // queries ty * 8 .. + 7; docs tx * 4 .. + 3 and 64 + tx * 4 .. + 3, so
+  // that 16 lanes read 256 contiguous bytes of a table row
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int n_k = (ND + EX_BK - 1) / EX_BK;
+#pragma unroll
+  for (int s = 0; s < EX_STAGES - 1; ++s) {
+    if (s < n_k) load_stage(s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(EX_STAGES - 2) : "memory");
+    __syncthreads();
+    if (kt + EX_STAGES - 1 < n_k)
+      load_stage((kt + EX_STAGES - 1) % EX_STAGES, kt + EX_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* As = reinterpret_cast<const float*>(
+        tc_smem + (kt % EX_STAGES) * EX_STAGE_BYTES);
+    const float* Bs = As + EX_A_BYTES / 4;
+#pragma unroll
+    for (int kk = 0; kk < EX_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(As + kk * EX_A_LD + ty * 8);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(As + kk * EX_A_LD + ty * 8 + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * CSUB + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(Bs + kk * CSUB + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // the ring is free: stage the tile in its memory
+
+  float* Ts = reinterpret_cast<float*>(tc_smem);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* p = Ts + (ty * 8 + i) * TC_T_LD + tx * 4;
+    *reinterpret_cast<float4*>(p) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(p + 64) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  staged_epilogue<ENTRIES, HST, false>(Ts, ent, out, dense_lo, dense_hi, q0, Q,
+                                       sub, n_slots);
 }
 
 // P6's second pass for EPI_REDUCED: one block per 2048-doc tile folds the
@@ -629,6 +1112,9 @@ __global__ void gather_rows_kernel(const int* __restrict__ ids,
 
 struct HeavyArgs {
   const float* mix;
+  const __nv_bfloat16* mixb;  // mix_lists' bf16 rows [Q, ND_pad], or null
+  int ND_pad;
+  int ffma;  // bf16 operands on the FFMA dense loop (timing and tests)
   const void* table;
   Lists lists;
   Entries ent;
@@ -638,18 +1124,53 @@ struct HeavyArgs {
   long long n_slots;
 };
 
-// The gather kernel, then the dense kernel, over the same grid of tiles;
-// each computes the tiles of its own q-blocks and leaves the others at once.
+// The gather kernel, then a dense kernel, over grids of the same tiles; each
+// computes the tiles of its own q-blocks and leaves the others at once. The
+// tensor-core kernel needs more than 48 KB of shared memory, which each of
+// its instantiations asks for once.
 template <bool FAST, typename TabT, bool ENTRIES, int HST, bool VARIANT>
 void launch_heavy(const HeavyArgs& a, cudaStream_t stream) {
   const int n_qblk = (a.Q + BM - 1) / BM;
-  const unsigned int grid =
-      static_cast<unsigned int>(a.n_slots / CSUB * n_qblk);
+  const unsigned int n_sub = static_cast<unsigned int>(a.n_slots / CSUB);
+  const unsigned int grid = n_sub * n_qblk;
   const TabT* table = static_cast<const TabT*>(a.table);
   heavy_gather_kernel<FAST, TabT, ENTRIES, HST, VARIANT>
       <<<grid, THREADS, 0, stream>>>(table, a.lists, a.ent, a.out, a.Q,
                                      a.n_slots, n_qblk);
   if (cudaPeekAtLastError() != cudaSuccess) return;
+  if constexpr (FAST || sizeof(TabT) == 2) {
+    if (!a.ffma) {
+      auto kernel = heavy_dense_tc_kernel<TabT, ENTRIES, HST, VARIANT>;
+      static bool sized = false;
+      if (!sized) {
+        if (cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 TC_SMEM_BYTES) != cudaSuccess)
+          return;
+        sized = true;
+      }
+      kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, TC_SMEM_BYTES, stream>>>(
+          a.mixb, a.ND_pad, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots,
+          n_qblk);
+      return;
+    }
+  }
+  if constexpr (!FAST && sizeof(TabT) == 4 && !VARIANT) {
+    if (!a.ffma) {
+      auto kernel = heavy_dense_exact_kernel<ENTRIES, HST>;
+      static bool sized = false;
+      if (!sized) {
+        if (cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 EX_SMEM_BYTES) != cudaSuccess)
+          return;
+        sized = true;
+      }
+      kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, EX_SMEM_BYTES, stream>>>(
+          a.mix, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots, n_qblk);
+      return;
+    }
+  }
   heavy_dense_kernel<FAST, TabT, ENTRIES, HST, VARIANT>
       <<<grid, THREADS, 0, stream>>>(a.mix, table, a.lists, a.ent, a.out, a.Q,
                                      a.ND, a.n_slots, n_qblk);
@@ -851,33 +1372,53 @@ dim3 probe_tiles(int rows, int cols) {
 
 }  // namespace
 
+// mixb (null for none) takes the rounded rows as bf16 [Q, ND_pad], ND_pad >=
+// ND a multiple of 32; only with round_bf16.
 extern "C" int ns_mix_lists(const float* mix, int round_bf16, int Q, int ND,
                             int L, int* count, int* cols, float* vals,
-                            void* stream) {
+                            void* mixb, int ND_pad, void* stream) {
   if (L > GATHER_CUT) return static_cast<int>(cudaErrorInvalidValue);
+  if (mixb != nullptr && (!round_bf16 || ND_pad < ND || ND_pad % TC_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  __nv_bfloat16* mb = static_cast<__nv_bfloat16*>(mixb);
   const int threads = 256;  // 8 rows per block
   const unsigned int blocks = static_cast<unsigned int>((Q + 7) / 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (round_bf16)
-    mix_lists_kernel<true><<<blocks, threads, 0, s>>>(mix, Q, ND, L, count, cols, vals);
+    mix_lists_kernel<true><<<blocks, threads, 0, s>>>(mix, Q, ND, L, count, cols,
+                                                      vals, mb, ND_pad);
   else
-    mix_lists_kernel<false><<<blocks, threads, 0, s>>>(mix, Q, ND, L, count, cols, vals);
+    mix_lists_kernel<false><<<blocks, threads, 0, s>>>(mix, Q, ND, L, count,
+                                                       cols, vals, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The product launches take lists of at most GATHER_CUT entries.
-bool valid_shapes(int Q, int L) { return Q > 0 && L >= 0 && L <= GATHER_CUT; }
+// The product launches take lists of at most GATHER_CUT entries, and, where
+// the tensor-core kernel may run (bf16 operands, ffma off), the padded bf16
+// mix.
+bool valid_shapes(int Q, int L, int ND, bool bf16_operands, const void* mixb,
+                  int ND_pad, int ffma) {
+  if (Q <= 0 || L < 0 || L > GATHER_CUT) return false;
+  if (!bf16_operands || ffma) return true;
+  return mixb != nullptr && ND_pad >= ND && ND_pad % TC_BK == 0;
+}
 
 // Every product entry point takes the mix lists of ns_mix_lists (lcnt,
-// lcol, lval, capacity L), made with the rounding the product applies.
+// lcol, lval, capacity L), made with the rounding the product applies, and
+// its bf16 rows (mixb, ND_pad; null and 0 in f32-exact mode). ffma != 0
+// sends bf16 operands' dense q-blocks down the FFMA loop in place of the
+// tensor-core kernel.
 extern "C" int ns_heavy_fused3(const float* mix, const void* table,
                                int table_bf16, int fast, int h_bf16_up,
                                const int* lcnt, const int* lcol,
-                               const float* lval, int L, void* h, float* smax,
+                               const float* lval, int L, const void* mixb,
+                               int ND_pad, int ffma, void* h, float* smax,
                                float* cnt, int Q, int ND, long long n_slots,
                                void* stream) {
-  if (!valid_shapes(Q, L)) return static_cast<int>(cudaErrorInvalidValue);
-  const HeavyArgs a{mix, table, Lists{lcnt, lcol, lval, L},
+  if (!valid_shapes(Q, L, ND, fast || table_bf16, mixb, ND_pad, ffma))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, ffma,
+                    table, Lists{lcnt, lcol, lval, L},
                     Entries{nullptr, nullptr, nullptr, nullptr},
                     Outs{h, smax, cnt, nullptr, 1, EPI_FULL}, Q, ND, n_slots};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -891,12 +1432,15 @@ extern "C" int ns_heavy_fused3(const float* mix, const void* table,
 extern "C" int ns_unified_fused(const float* mix, const void* table,
                                 int table_bf16, int fast, const int* lcnt,
                                 const int* lcol, const float* lval, int L,
+                                const void* mixb, int ND_pad, int ffma,
                                 const int* ent_doc, const int* ent_q,
                                 const float* ent_val, const int* ent_off,
                                 float* totals, float* smax, float* cnt, int Q,
                                 int ND, long long n_slots, void* stream) {
-  if (!valid_shapes(Q, L)) return static_cast<int>(cudaErrorInvalidValue);
-  const HeavyArgs a{mix, table, Lists{lcnt, lcol, lval, L},
+  if (!valid_shapes(Q, L, ND, fast || table_bf16, mixb, ND_pad, ffma))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, ffma,
+                    table, Lists{lcnt, lcol, lval, L},
                     Entries{ent_doc, ent_q, ent_val, ent_off},
                     Outs{totals, smax, cnt, nullptr, 1, EPI_FULL}, Q, ND,
                     n_slots};
@@ -911,12 +1455,15 @@ extern "C" int ns_unified_fused(const float* mix, const void* table,
 extern "C" int ns_heavy_variant(const float* mix, const void* table,
                                 int table_bf16, int h_bf16_rn, int store_h,
                                 int epi, const int* lcnt, const int* lcol,
-                                const float* lval, int L, void* h, float* smax,
+                                const float* lval, int L, const void* mixb,
+                                int ND_pad, int ffma, void* h, float* smax,
                                 float* cnt, float* cnt_s, float* part, int Q,
                                 int ND, long long n_slots, void* stream) {
-  if (!valid_shapes(Q, L)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_shapes(Q, L, ND, true, mixb, ND_pad, ffma))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const HeavyArgs a{mix, table, Lists{lcnt, lcol, lval, L},
+  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, ffma,
+                    table, Lists{lcnt, lcol, lval, L},
                     Entries{nullptr, nullptr, nullptr, nullptr},
                     Outs{h, smax, epi == EPI_REDUCED ? cnt_s : cnt, part,
                          store_h, epi},

@@ -3,8 +3,10 @@ selection epilogue), K5 (the same with the light entries folded into the
 product), K2/K3 (row gathers) and the attribution variants of the product
 (P6), as hand-written CUDA for Hopper, and mix_lists, the pre-pass that the
 K1/K5/K6/P6 wrappers launch: each query's nonzero mix entries, over which
-the product gathers table rows instead of running a dense loop over a
-mostly-zero mix.
+the product gathers table rows instead of running a dense product over a
+mostly-zero mix, and the mix rounded to bf16 for the 64-query blocks that do
+take the dense product, which runs on the tensor cores when both operands
+are bf16 values.
 
 Each public wrapper checks its arguments, runs the plain PyTorch version
 when the tensors lie on the CPU (the CPU tests), and launches its CUDA
@@ -33,8 +35,16 @@ _CPT = TILE // CSUB
 GATHER_CUT = 32  # csrc/heavy.cu's GATHER_CUT: the longest list gathered over
 # The product launches' list capacity: None takes min(ND, GATHER_CUT); the
 # card tests set 0 to send every block with a nonzero mix entry down the
-# dense loop, and compare the two paths' bits.
+# dense product, and compare the two paths.
 _LIST_CAP = None
+# True sends every dense block down the first port's FFMA loop
+# (heavy_dense_kernel) in place of the tensor-core kernel (bf16 operands) or
+# the cp.async-fed FFMA kernel (f32-exact); it is passed to the C entry
+# points as an argument. The card tests and chip_smoke.py time and compare
+# the kernels on the same operands with it. Nothing sets it when a launch
+# fails.
+_DENSE_FFMA = False
+MIX_PAD = 32  # csrc/heavy.cu's TC_BK: the bf16 mix's columns pad to this
 
 
 def _pads(n_slots: int):
@@ -72,7 +82,19 @@ def mix_lists_ref(mix: torch.Tensor, round_bf16: bool, cap=None):
     return count, cols, vals
 
 
-def mix_lists(mix: torch.Tensor, round_bf16: bool, cap=None):
+def mix_bf16_padded_ref(mix: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the pre-pass's bf16 rows: mix rounded to bf16
+    (round-to-nearest-even), its columns zero-padded to a multiple of
+    MIX_PAD. The tensor-core kernel's A operand; padding columns multiply
+    table rows that the kernel zero-fills, so the product is the unpadded
+    one."""
+    nd = mix.shape[1]
+    return torch.nn.functional.pad(mix.to(torch.bfloat16),
+                                   (0, -nd % MIX_PAD))
+
+
+def mix_lists(mix: torch.Tensor, round_bf16: bool, cap=None, *,
+              with_bf16: bool = False):
     """Each mix row's nonzero entries, in ascending column order.
 
     The pre-pass of the heavy product (K1, K5, K6, P6), whose wrappers launch
@@ -82,7 +104,9 @@ def mix_lists(mix: torch.Tensor, round_bf16: bool, cap=None):
     whole nonzero count; cols int32 [Q, L] and vals f32 [Q, L], its first L
     nonzero columns and values, zero past the count). L = min(ND,
     GATHER_CUT), or cap. A row with count > L makes the product take its
-    dense loop for that row's 64-query block.
+    dense kernel for that row's 64-query block. with_bf16 (only with
+    round_bf16) adds a fourth result from the same launch: the rounded mix
+    as bf16 [Q, round_up(ND, MIX_PAD)], zero-padded (mix_bf16_padded_ref).
     """
     if mix.dim() != 2 or mix.dtype != torch.float32:
         raise TypeError("mix_lists: mix must be 2D float32")
@@ -90,8 +114,11 @@ def mix_lists(mix: torch.Tensor, round_bf16: bool, cap=None):
         raise ValueError("mix_lists: mix must be contiguous")
     if not 0 <= _list_capacity(mix.shape[1], cap) <= GATHER_CUT:
         raise ValueError(f"mix_lists: capacity {cap} outside [0, {GATHER_CUT}]")
+    if with_bf16 and not round_bf16:
+        raise ValueError("mix_lists: with_bf16 needs round_bf16")
     if mix.device.type == "cpu":
-        return mix_lists_ref(mix, round_bf16, cap)
+        lists = mix_lists_ref(mix, round_bf16, cap)
+        return (*lists, mix_bf16_padded_ref(mix)) if with_bf16 else lists
     if mix.device.type != "cuda":
         raise ValueError(f"mix_lists: unsupported device {mix.device}")
     q, nd = mix.shape
@@ -100,22 +127,31 @@ def mix_lists(mix: torch.Tensor, round_bf16: bool, cap=None):
     count = torch.empty((q,), dtype=torch.int32, device=dev)
     cols = torch.empty((q, width), dtype=torch.int32, device=dev)
     vals = torch.empty((q, width), dtype=torch.float32, device=dev)
+    nd_pad = nd + -nd % MIX_PAD
+    mixb = (torch.empty((q, nd_pad), dtype=torch.bfloat16, device=dev)
+            if with_bf16 else None)
     lib = library()
     with torch.cuda.device(dev):
         rc = lib.ns_mix_lists(mix.data_ptr(), int(bool(round_bf16)), q, nd,
                               width, count.data_ptr(), cols.data_ptr(),
-                              vals.data_ptr(), stream(dev))
+                              vals.data_ptr(),
+                              mixb.data_ptr() if with_bf16 else None,
+                              nd_pad if with_bf16 else 0, stream(dev))
     check_rc(rc, "mix_lists")
     mix_lists.launches += 1
-    return count, cols, vals
+    return (count, cols, vals, mixb) if with_bf16 else (count, cols, vals)
 
 
 def _lists_args(mix, round_bf16: bool):
-    """ctypes arguments (count, cols, vals, L) of a product launch, and the
-    tensors, which the caller keeps alive until the launch is queued."""
-    lists = mix_lists(mix, round_bf16, _LIST_CAP)
+    """ctypes arguments (count, cols, vals, L, bf16 mix, its columns, the
+    FFMA switch) of a product launch, and the tensors, which the caller
+    keeps alive until the launch is queued. The bf16 mix goes with every
+    launch that rounds mix (null and 0 otherwise)."""
+    lists = mix_lists(mix, round_bf16, _LIST_CAP, with_bf16=round_bf16)
+    mixb = lists[3] if round_bf16 else None
     return (lists[0].data_ptr(), lists[1].data_ptr(), lists[2].data_ptr(),
-            lists[1].shape[1]), lists
+            lists[1].shape[1], mixb.data_ptr() if round_bf16 else None,
+            mixb.shape[1] if round_bf16 else 0, int(_DENSE_FFMA)), lists
 
 
 # ---------------------------------------------------------------- K1
@@ -260,11 +296,19 @@ def heavy_fused3(mix: torch.Tensor, table: torch.Tensor, *, fast: bool,
     fp32, with mix rounded to bf16 over a bf16 table. h_dtype bf16 stores H
     rounded up (round_up_bf16); smax and cnt come from the f32 sums.
 
-    On a card the launch is two kernels: mix_lists (counted in its own
+    On a card the launch is the pre-pass mix_lists (counted in its own
     mix_lists.launches), then the product, which gathers the table rows of
-    each query's nonzero mix entries, or runs a dense loop in a 64-query
-    block holding a list longer than min(ND, GATHER_CUT); both paths give
-    the same bits. K5, K6 and P6 launch it the same way.
+    each query's nonzero mix entries, or runs a dense product in a 64-query
+    block holding a list longer than min(ND, GATHER_CUT). In f32-exact mode
+    (fast=False over an f32 table) the dense product is an fp32 FFMA loop
+    and both paths give the same bits. With bf16 operands (fast, or a bf16
+    table) it runs on the tensor cores: the same exact bf16 x bf16 products
+    summed in the tensor cores' order (one rounding per 16-term step), so
+    its H and smax agree with the gather's and the plain version's within
+    (ND / 8 + 8) * 2^-23 relative, while H > 0 and cnt are
+    the same bit for bit (the operands are non-negative), smax is the max
+    of the launch's own H and a bf16 H the rounding of its own f32 sums.
+    K5, K6 and P6 launch it the same way.
     """
     return _launch_fused(heavy_fused3, "heavy_fused3", mix, table, fast,
                          h_dtype)

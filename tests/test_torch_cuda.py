@@ -9,7 +9,9 @@ bf16 rows) and K4 bit for bit; K1 and K6 cnt bit for bit and H/smax within
 1e-6 relative (the kernel's fp32 sums run in another order than cuBLAS's),
 a bf16 H equal to the rounding of the kernel's own f32 H; K5 cnt bit for bit
 and totals/smax within 2e-6 relative (the same product, plus entry sums in
-the same order); P6 as K6, its reduced smax within 1e-6 relative; P1
+the same order); on dense mixes with bf16 operands (the tensor-core kernel)
+H and smax within (ND / 8 + 8) * 2^-23 relative, cnt and H > 0 still bit for
+bit; P6 as K6, its reduced smax within 1e-6 relative; P1
 within 2 * 512 * 2^-24 relative (two orders of a 512-term positive sum),
 P3 within 1e-6 (a few entries per cell at most), P2, P4 and P5 bit for
 bit. The whole TorchIndex on
@@ -405,6 +407,32 @@ def test_mix_lists_kernel_bit_exact(cuda, kind, q, nd):
             torch.cuda.synchronize()
             for a, b in zip(got, exp):
                 assert a.dtype == b.dtype and torch.equal(a, b), (round_bf16, cap)
+    with_rows = hk.mix_lists(mix, True, with_bf16=True)
+    assert all(torch.equal(a, b)
+               for a, b in zip(with_rows[:3], hk.mix_lists_ref(mix, True)))
+    assert torch.equal(_bits(with_rows[3]), _bits(hk.mix_bf16_padded_ref(mix)))
+
+
+def _tc_rtol(nd):
+    """Tolerance of the tensor-core dense kernel's H and smax against the
+    plain version, the gather and the FFMA loop: the same exact bf16 x bf16
+    products, nd non-negative terms added in f32; the tensor cores round
+    (toward zero) once per 16-term mma step, so nd / 16 steps of 2^-23,
+    doubled for the other side's own rounding, plus 8 steps for short
+    contractions (the worst case of any order would be nd * 2^-23)."""
+    return (nd / 8 + 8) * 2.0 ** -23
+
+
+def _close(got, exp, rtol):
+    """cnt bit for bit, the same smax padding, finite smax and an f32 H
+    within rtol, H > 0 bit for bit."""
+    assert torch.equal(got[2], exp[2])
+    fin = torch.isfinite(exp[1])
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    torch.testing.assert_close(got[1][fin], exp[1][fin], rtol=rtol, atol=0)
+    if got[0].dtype == torch.float32:
+        assert torch.equal(got[0] > 0, exp[0] > 0)
+        torch.testing.assert_close(got[0], exp[0], rtol=rtol, atol=0)
 
 
 @pytest.mark.cuda
@@ -412,9 +440,13 @@ def test_mix_lists_kernel_bit_exact(cuda, kind, q, nd):
 def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
                                                            monkeypatch):
     """K1/K6 (f32 and bf16 tables, both modes, f32 and bf16-up H), K5 and
-    every P6 switch over one mix: within the plain version's tolerance, cnt
-    bit for bit, and bit-equal to the same launch with the lists' capacity
-    forced to 0 (every block with a nonzero entry takes the dense loop)."""
+    every P6 switch over one mix, against the same launch with the lists'
+    capacity forced to 0 (every block with a nonzero entry takes a dense
+    kernel). f32-exact launches (the FFMA loop): bit-equal to the gather.
+    bf16 operands: the FFMA loop (_DENSE_FFMA) is still bit-equal to the
+    gather, and the tensor-core kernel agrees with it in cnt and H > 0 bit
+    for bit and in H and smax within _tc_rtol; its smax is the max of its
+    own H and its bf16 H the rounding of its own f32 H."""
     from nextsearch_tpu_torch.ops import heavy_kernels as hk
 
     q, nd, n_slots = 200, 64, 6144
@@ -423,40 +455,139 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
     tab16 = table.to(torch.bfloat16)
     sd, sq, sv = _sorted_entries(q, n_slots, 3000, 9, cuda)
     n_sub = n_slots // 128
-
-    def both(call):
-        got = call()
-        monkeypatch.setattr(hk, "_LIST_CAP", 0)
-        forced = call()
-        monkeypatch.setattr(hk, "_LIST_CAP", None)
-        torch.cuda.synchronize()
-        for a, b in zip(got, forced):
-            assert torch.equal(_bits(a), _bits(b))
-        return got
-
-    def close(got, exp, rtol):
-        assert torch.equal(got[2], exp[2])
-        fin = torch.isfinite(exp[1])
-        assert torch.equal(torch.isfinite(got[1]), fin)
-        torch.testing.assert_close(got[1][fin], exp[1][fin], rtol=rtol, atol=0)
-        if got[0].dtype == torch.float32:
-            assert torch.equal(got[0] > 0, exp[0] > 0)
-            torch.testing.assert_close(got[0], exp[0], rtol=rtol, atol=0)
-
+    tol = _tc_rtol(nd)
+    products = (hk.heavy_fused3, hk.heavy_fused, hk.unified_fused,
+                hk.heavy_fused_variant)
     lists0 = hk.mix_lists.launches
+    calls0 = sum(f.launches for f in products)
+
+    def forced(call, ffma=False):
+        monkeypatch.setattr(hk, "_LIST_CAP", 0)
+        monkeypatch.setattr(hk, "_DENSE_FFMA", ffma)
+        out = call()
+        monkeypatch.setattr(hk, "_LIST_CAP", None)
+        monkeypatch.setattr(hk, "_DENSE_FFMA", False)
+        return out
+
+    def both(call, bf16_operands):
+        """(the launch as it routes itself, the launch forced dense)."""
+        got, dense = call(), forced(call)
+        torch.cuda.synchronize()
+        if not bf16_operands:
+            # the gather, the cp.async-fed FFMA kernel and the older loop
+            # run the same fmaf chains
+            old = forced(call, ffma=True)
+            torch.cuda.synchronize()
+            for a, b, c in zip(got, dense, old):
+                assert torch.equal(_bits(a), _bits(b))
+                assert torch.equal(_bits(a), _bits(c))
+            return got, dense
+        old = forced(call, ffma=True)
+        monkeypatch.setattr(hk, "_DENSE_FFMA", True)
+        got_old = call()
+        monkeypatch.setattr(hk, "_DENSE_FFMA", False)
+        torch.cuda.synchronize()
+        for a, b in zip(got_old, old):  # the gather and the FFMA loop
+            assert torch.equal(_bits(a), _bits(b))
+        _close(dense, old, tol)
+        _close(got, old, tol)
+        return got, dense
+
     for fast, tab in ((False, table), (True, table), (False, tab16),
                       (True, tab16)):
+        bf16_ops = fast or tab.dtype == torch.bfloat16
+        rtol = tol if bf16_ops else 1e-6
         for fn, ref in ((hk.heavy_fused3, hk.heavy_fused3_ref),
                         (hk.heavy_fused, hk.heavy_fused_ref)):
+            outs = {}
             for h_dtype in (torch.float32, torch.bfloat16):
-                got = both(lambda: fn(mix, tab, fast=fast, h_dtype=h_dtype))
-                close(got, ref(mix, tab, fast=fast, h_dtype=h_dtype), 1e-6)
-        got = both(lambda: hk.unified_fused(mix, tab, sd, sq, sv, fast=fast))
-        close(got, hk.unified_fused_ref(mix, tab, sd, sq, sv, fast=fast), 2e-6)
-        assert torch.equal(got[1][:n_sub], got[0].view(q, n_sub, 128).amax(2).T)
+                outs[h_dtype] = both(
+                    lambda: fn(mix, tab, fast=fast, h_dtype=h_dtype), bf16_ops)
+                exp = ref(mix, tab, fast=fast, h_dtype=h_dtype)
+                for got in outs[h_dtype]:
+                    _close(got, exp, rtol)
+            for f32, up in zip(outs[torch.float32], outs[torch.bfloat16]):
+                assert torch.equal(_bits(up[0]), _bits(hk.round_up_bf16(f32[0])))
+                assert torch.equal(up[1], f32[1]) and torch.equal(up[2], f32[2])
+                assert torch.equal(f32[1][:n_sub],
+                                   f32[0].view(q, n_sub, 128).amax(2).T)
+        exp = hk.unified_fused_ref(mix, tab, sd, sq, sv, fast=fast)
+        for got in both(lambda: hk.unified_fused(mix, tab, sd, sq, sv, fast=fast),
+                        bf16_ops):
+            _close(got, exp, max(rtol, 2e-6))
+            assert torch.equal(got[1][:n_sub],
+                               got[0].view(q, n_sub, 128).amax(2).T)
+    full = None
     for kw in ({}, dict(epilogue=False), dict(smax_store=False),
                dict(store_h=False), dict(h_dtype=torch.bfloat16)):
-        got = both(lambda: hk.heavy_fused_variant(mix, tab16, **kw))
-        close(got, hk.heavy_fused_variant_ref(mix, tab16, **kw), 1e-6)
+        pair = both(lambda: hk.heavy_fused_variant(mix, tab16, **kw), True)
+        full = full or pair
+        exp = hk.heavy_fused_variant_ref(mix, tab16, **kw)
+        for got, f in zip(pair, full):
+            _close(got, exp, tol)
+            if kw.get("h_dtype") == torch.bfloat16:
+                assert torch.equal(_bits(got[0]), _bits(f[0].to(torch.bfloat16)))
+            if kw.get("store_h") is False:
+                assert not bool(got[0].any())
     # one pre-pass per product launch
-    assert hk.mix_lists.launches == lists0 + 2 * (4 * (2 * 2 + 1) + 5)
+    assert hk.mix_lists.launches - lists0 == \
+        sum(f.launches for f in products) - calls0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,nd", [(512, 384), (200, 1877), (37, 20)])
+@pytest.mark.parametrize("bf16_table", [True, False])
+def test_dense_tensor_core_kernel_matches_plain(cuda, q, nd, bf16_table):
+    """Dense mixes (every block takes the dense kernel) at ND 384 and at
+    ragged Q and ND, over bf16 and f32 tables: K1/K6 fast with all three H
+    stores, K1 exact (the tensor cores over a bf16 table, the FFMA loop over
+    an f32 one), K5 with entries and every P6 switch against their plain
+    versions within _tc_rtol, cnt and H > 0 bit for bit; the identities of
+    one kernel bit for bit (smax the max of its own H, a bf16 H the
+    rounding of its own f32 H, exact equal to fast over a bf16 table, P6
+    full equal to K6)."""
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+
+    n_slots = 4096
+    g = torch.Generator().manual_seed(q + nd)
+    mix = (torch.rand(q, nd, generator=g) + 0.05).to(cuda)
+    _m, table = _operands(q, nd, n_slots, nd, cuda)
+    tab = table.to(torch.bfloat16) if bf16_table else table
+    sd, sq, sv = _sorted_entries(q, n_slots, 3000, 5, cuda)
+    n_sub = n_slots // 128
+    tol = _tc_rtol(nd)
+
+    def own_max(got):
+        assert torch.equal(got[1][:n_sub], got[0].view(q, n_sub, 128).amax(2).T)
+
+    fast = hk.heavy_fused3(mix, tab, fast=True)
+    _close(fast, hk.heavy_fused3_ref(mix, tab, fast=True), tol)
+    own_max(fast)
+    k6 = hk.heavy_fused(mix, tab, fast=True)
+    assert all(torch.equal(a, b) for a, b in zip(k6, fast))
+    up = hk.heavy_fused3(mix, tab, fast=True, h_dtype=torch.bfloat16)
+    assert torch.equal(_bits(up[0]), _bits(hk.round_up_bf16(fast[0])))
+    assert torch.equal(up[1], fast[1]) and torch.equal(up[2], fast[2])
+    exact = hk.heavy_fused3(mix, tab, fast=False)
+    _close(exact, hk.heavy_fused3_ref(mix, tab, fast=False), tol)
+    own_max(exact)
+    if bf16_table:
+        assert torch.equal(exact[0], fast[0])
+    for mode in (True, False):
+        tot = hk.unified_fused(mix, tab, sd, sq, sv, fast=mode)
+        again = hk.unified_fused(mix, tab, sd, sq, sv, fast=mode)
+        assert all(torch.equal(a, b) for a, b in zip(tot, again))
+        _close(tot, hk.unified_fused_ref(mix, tab, sd, sq, sv, fast=mode),
+               max(tol, 2e-6))
+        own_max(tot)
+    for kw in ({}, dict(epilogue=False), dict(smax_store=False),
+               dict(store_h=False), dict(h_dtype=torch.bfloat16)):
+        got = hk.heavy_fused_variant(mix, tab, **kw)
+        _close(got, hk.heavy_fused_variant_ref(mix, tab, **kw), tol)
+        if not kw:
+            assert torch.equal(got[0], fast[0])
+        if kw.get("h_dtype") == torch.bfloat16:
+            assert torch.equal(_bits(got[0]), _bits(fast[0].to(torch.bfloat16)))
+        if kw.get("store_h") is False:
+            assert not bool(got[0].any())
+    torch.cuda.synchronize()
