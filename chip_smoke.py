@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port's BM25 search paths (the sparse mode and the
-fused, exact and fast modes) on one CUDA card.
+fused, exact and fast modes), its autocomplete, semantic expansion and hybrid
+rerank, and its HTTP server on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -50,6 +51,29 @@ non-zero before the last line:
    (g) the windowed selection kernel (NEXTSEARCH_SELECT_PALLAS=1, K4)
    guarded fast, (h) K4 compact exact. Then 5 s pipelined loops at depth
    2 on the default path, under unified and under K4.
+   Then, on the same index (each path's launches counted from zero):
+   (p) autocomplete over the bench lexicon (df summed): 512 prefixes of
+   lengths 1-7 through the per-prefix cache and host ranges, then with
+   no cache and no host ranges through the window top-k and, for ranges
+   wider than 16,384, the full-table top-k on the card; every answer
+   equal to the host range top-k, ms per batch of each path. (q)
+   clustered embeddings made here from a seed: dim 128, the term of df
+   rank r in cluster r // 8, centre + 0.65 * noise (in-cluster cosine
+   about 0.7, cross-cluster about 0). (r) bench batches expanded through
+   Engine._weighted_terms: one batch oracle-exact over its expanded
+   weighted terms, its expansions equal to SemanticIndex.expand over
+   float64 similarities (near-ties within 2e-6 exempt and counted), and a
+   3 s depth-2 loop that expands each batch in its requests' time. (s) 512
+   questions of 10 distinct df-head terms expanded to the 40-term cap:
+   the 64-query blocks whose heavy mix holds a row longer than
+   GATHER_CUT (K1's dense kernel), reckoned from the launch's plan, must
+   be > 0; all 512 results oracle-exact under the fast guard; K1 on those
+   operands against its plain version within the dense kernels'
+   tolerance, with its time and bound. (t) HybridIndex (beta 0.5) over
+   the index: the doc-embedding build, 16 queries against
+   _host_hybrid_row (doc order exact, scores rtol 2e-5), a 3 s depth-4 loop
+   of batches of 128 at 100 candidates, and a batch with every heavy
+   row's guard tripped (fast_heavy_eps 1e9), fixed up on the host.
 5. bf16 rows: the f32 index is freed and a TorchIndex with
    dense_rows_bf16 is built over the same corpus and configuration; (i)
    the compact launch (K3 over bf16 rows, K1 exact), (j) the full-table
@@ -73,14 +97,20 @@ non-zero before the last line:
    batch, peak memory; K3 once per batch); (n) one batch of 64 in exact
    mode, bit-exact and run twice for the same bits, and (o) one in fast
    mode (found equal, scores within 1e-5, docs equal outside near-ties),
-   both at the library's posting block of 2048.
+   both at the library's posting block of 2048; one hybrid batch of 128
+   over this index under (t)'s gate.
 7. probe paths: benchmarks/kernel_probe.py (P1-P5, all PASS) and one
    short run of benchmarks/probe_fusedmm.py (K6 and every P6 variant).
 8. server: a small on-disk index served over HTTP by the port's Engine, in
    sparse mode (answers run K1 and K2) and in the mode the server's main
    starts in with no NEXTSEARCH_MODE, the library default (fused; answers
-   run K3); /api/search answers must match the oracle, and ?hybrid=1
-   (there is no embeddings file) must answer the same.
+   run K3); /api/search answers must match the oracle, ?hybrid=1
+   (there is no embeddings file) must answer the same, and
+   /api/suggest?q=w00 the autocomplete table's list. Then with an
+   embeddings.vec in the index directory, in both modes: searches equal
+   the oracle over the engine's expanded terms, ?hybrid=1 answers the
+   reference's hybrid body with HybridIndex.search_batch's docs, cached
+   under "q|K|hybrid".
 
 Every path's launches are counted from zero just before it and read just
 after; a kernel of the path that never launched fails the run.
@@ -813,15 +843,16 @@ def check_select(ti, plan, mix_c, t_bf16, device, reps):
 
 
 def spot_check(ti, oracle_segs, queries, results, memo):
-    """Results equal the oracle: f32 scores, (segment, doc), found."""
+    """Results equal the oracle: f32 scores, (segment, doc), found.
+    oracle_search_vec is oracle_search vectorized, with the same bits."""
     import numpy as np
 
-    from nextsearch_tpu_torch.index.oracle import oracle_search
+    from nextsearch_tpu_torch.index.oracle import oracle_search_vec
 
     for terms, res in zip(queries, results):
         key = tuple(terms)
         if key not in memo:
-            memo[key] = oracle_search(oracle_segs, terms, k=K)
+            memo[key] = oracle_search_vec(oracle_segs, terms, k=K)
         hits, found = memo[key]
         if res.found != found or len(res.scores) != len(hits):
             raise AssertionError(f"oracle mismatch (found/len) for {terms}")
@@ -1227,14 +1258,16 @@ def fast_mode_check(ti, oracle_segs, queries, results):
 
 
 def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
-                reps):
+                reps, sem):
     """The library default on the card: a fused-mode TorchIndex over the
     bench corpus at bench.py's fused configuration. K3 at this path's
     shapes against its plain version and index_select; one batch-512 launch
     spot-checked bit-exact with K3 launched once; the pipelined loop; one
     batch of 64 in exact mode (bit-exact, run twice for the same bits) and
     in fast mode (fast_mode_check), both at the library's posting block of
-    2048. Returns (launch totals, K3's numbers here, loop numbers)."""
+    2048; then one hybrid batch of 128 over this index (the fused handle)
+    under hybrid_gate. Returns (launch totals, K3's numbers here, loop
+    numbers)."""
     import numpy as np
     import torch
 
@@ -1311,9 +1344,457 @@ def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
             % fast_mode_check(ti, oracle_segs, q, r)))
     finally:
         ti.config = cfg
+    from nextsearch_tpu_torch.models.hybrid import HybridIndex
+
+    hy = HybridIndex(ti, sem, beta=0.5)
+    queries = spot[:HYBRID_BATCH]
+    reset_counts()
+    res = hy.search_batch(queries, k=K, candidates=CANDIDATES)
+    counts = launched(launch_counts())
+    if counts != {"gather_rows": 1}:
+        raise AssertionError(f"(t) hybrid over the fused index: launches {counts}")
+    total["gather_rows"] += 1
+    hybrid_gate(hy, queries[:16], res[:16])
+    say(f"(t) hybrid over the fused index: a batch of {HYBRID_BATCH}, 16 pass "
+        f"the gate; launches {counts}")
+    del hy
     perf.update(n_dense=ti.n_dense, hbm_bytes=hbm["total"])
     del ti
     return total, k3, perf
+
+
+# ---------------------------------------------------------------- models:
+# autocomplete, semantic expansion and the hybrid rerank on the bench index
+
+EMB_DIM = 128  # the reference's hybrid evaluation (benchmarks/eval_configs.py)
+EMB_SIGMA = 0.65  # in-cluster cosine about 1 / (1 + sigma^2) = 0.70
+NEAR = 2e-6  # similarity gaps where two summation orders may disagree
+HYBRID_BATCH = 128  # the reference's hybrid serving batch (eval_configs.py)
+MODEL_LOOP_SECS = 3.0  # the expanded and hybrid loops
+CANDIDATES = 100  # config.HybridConfig.candidates
+
+
+def df_ranked_terms(seg):
+    """The segment's terms by df, highest first (ties by term index)."""
+    import numpy as np
+
+    return [seg.terms[i] for i in np.argsort(-seg.term_df, kind="stable")]
+
+
+def clustered_vectors(n: int, dim: int = EMB_DIM, seed: int = 7):
+    """n vectors, 8 to a cluster in order (vector i in cluster i // 8):
+    centre + EMB_SIGMA * noise, so in-cluster cosines are about 0.7 and
+    cross-cluster ones 0 +- 0.09, far below the expansion floor 0.55."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    centres = r.standard_normal((n // 8 + 1, dim), dtype=np.float32)
+    noise = r.standard_normal((n, dim), dtype=np.float32)
+    return centres[np.arange(n) // 8] + np.float32(EMB_SIGMA) * noise
+
+
+def suggest_reference(ac, inputs, limit):
+    """Each input's suggestions from the host range top-k (score desc, term
+    asc) over its whole prefix range."""
+    from nextsearch_tpu_torch.models.autocomplete import split_last_token
+    from nextsearch_tpu_torch.utils.textutil import normalize_token
+
+    out = []
+    for s in inputs:
+        base, last = split_last_token(s)
+        prefix = normalize_token(last)
+        lo, hi = ac.prefix_range(prefix) if prefix else (0, 0)
+        out.append([base + ac.terms[c] for c in ac._host_range_topk(lo, hi, limit)]
+                    if lo < hi else [])
+    return out
+
+
+def autocomplete_phase(seg, device, card, reps):
+    """(p) AutocompleteIndex over the bench lexicon (df summed, as reload
+    builds it): 512 prefixes of lengths 1-7 through the per-prefix cache
+    and host ranges; then, on an instance with PRECOMP_LEN = NARROW_RANGE =
+    0, those whose range fits the widest window through the window top-k
+    on the card and the wider ones through the full-table top-k. Every
+    answer entry for entry against the host range top-k; ms per batch of
+    each path (host clock, results on the host)."""
+    import numpy as np
+
+    from nextsearch_tpu_torch.models import autocomplete as am
+    from nextsearch_tpu_torch.ops import prefix as pops
+
+    scores: dict = {}
+    for t, df in zip(seg.terms, seg.term_df):
+        scores[t] = scores.get(t, 0) + int(df)
+    r = np.random.default_rng(13)
+    ranked = df_ranked_terms(seg)
+    picks = r.integers(0, min(len(ranked), 50_000), 512)
+    lens = r.integers(1, 8, 512)
+    inputs = [("what is " if i % 5 == 0 else "") + ranked[p][:n]
+              for i, (p, n) in enumerate(zip(picks, lens))]
+    t = time.perf_counter()
+    ac = am.AutocompleteIndex(device=device)
+    ac.build(scores, 10)
+    build_s = time.perf_counter() - t
+    bare = am.AutocompleteIndex(device=device)
+    bare.PRECOMP_LEN = bare.NARROW_RANGE = 0
+    bare.build(scores, 10)
+    top = am.AutocompleteIndex.WINDOW_BUCKETS[-1]
+    width = {}
+    for s in inputs:
+        lo, hi = ac.prefix_range(s.split()[-1])
+        width[s] = hi - lo
+    narrow = [s for s in inputs if width[s] <= top]
+    wide = [s for s in inputs if width[s] > top]
+    out = dict(terms=len(ac.terms), build_s=build_s)
+    with mock.patch.object(am, "prefix_window_topk",
+                           wraps=pops.prefix_window_topk) as win, \
+            mock.patch.object(am, "prefix_range_topk",
+                              wraps=pops.prefix_range_topk) as full:
+        for key, label, index, batch, want in (
+                ("cached", "per-prefix cache and host ranges", ac, inputs,
+                 (0, 0)),
+                ("window", "window top-k on the card", bare, narrow, (1, 0)),
+                ("full_table", "full-table top-k on the card", bare, wide,
+                 (0, 1))):
+            win.reset_mock()
+            full.reset_mock()
+            got = index.suggest_batch(batch, 10)
+            if (win.call_count, full.call_count) != want:
+                raise AssertionError(f"(p) {label}: launches "
+                                     f"{win.call_count, full.call_count}")
+            if got != suggest_reference(index, batch, 10) or not all(got):
+                raise AssertionError(f"(p) {label}: differs from the host "
+                                     "range top-k")
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                index.suggest_batch(batch, 10)
+                times.append((time.perf_counter() - t) * 1e3)
+            out[f"{key}_ms"] = statistics.median(times)
+            out[f"{key}_prefixes"] = len(batch)
+            say(f"[{card}] (p) autocomplete, {label}: {len(batch)} prefixes "
+                f"equal the host range top-k; {out[key + '_ms']:.3f} ms per "
+                "batch")
+    say(f"(p) autocomplete index: {len(ac.terms)} terms, built in "
+        f"{build_s:.2f} s; prefix ranges {min(width.values())}-"
+        f"{max(width.values())} wide")
+    return out
+
+
+def semantic_index(seg, device):
+    """(q) SemanticIndex over clustered vectors: the term of df rank r in
+    cluster r // 8, so a head term's neighbours are head terms."""
+    from nextsearch_tpu_torch.models.semantic import SemanticIndex
+
+    ranked = df_ranked_terms(seg)
+    t = time.perf_counter()
+    sem = SemanticIndex(device=device)
+    if not sem.load_from_arrays(ranked, clustered_vectors(len(ranked))):
+        raise AssertionError("(q) load_from_arrays refused the vectors")
+    sem.emb  # placed on the card
+    say(f"(q) embeddings: {len(sem.terms)} terms x {sem.dim} (clusters of 8 "
+        f"by df rank), loaded in {time.perf_counter() - t:.2f} s")
+    return sem
+
+
+def expander(ti, sem, device, tmp):
+    """Engine._weighted_terms over the index's configuration and sem, as a
+    function of one bench query (its terms with weight 1.0). The Engine
+    loads no index; tmp is its (unused) index and cache directory."""
+    from nextsearch_tpu_torch.engine import Engine
+
+    eng = Engine(tmp, config=ti.config, cache_dir=tmp, device=device)
+    eng.sem = sem
+    return lambda q: eng._weighted_terms([t for t, _w in q])
+
+
+def expansion_check(sem, expand, params, queries):
+    """The card's expansions of `queries` against SemanticIndex.expand over
+    float64 similarities on the host. A query is exempt (and counted) where
+    the two may rank differently: a similarity among its top k + 1 within
+    NEAR of the floor or of the next one, or two final weights within NEAR.
+    Returns (queries compared, exempt, terms added)."""
+    import numpy as np
+    import torch
+
+    from nextsearch_tpu_torch.models import semantic as sm
+
+    emb64 = sem._emb_host.astype(np.float64)
+    near = []
+
+    def topk_f64(_emb, qvecs, banned, min_sim, *, k):
+        sims = qvecs.cpu().numpy().astype(np.float64) @ emb64.T
+        sims[:, banned.cpu().numpy()] = -np.inf
+        kk = min(k + 1, sims.shape[1])
+        vals = np.empty((sims.shape[0], k))
+        rows = np.empty((sims.shape[0], k), np.int32)
+        for i, row in enumerate(sims):
+            part = np.argpartition(-row, kk - 1)[:kk]
+            order = part[np.lexsort((part, -row[part]))]
+            top = row[order]
+            fin = top[np.isfinite(top)]
+            if (np.abs(fin - min_sim) < NEAR).any() or (
+                    np.abs(np.diff(fin)) < NEAR).any():
+                near.append(i)
+            vals[i] = np.where(top[:k] < min_sim, -np.inf, top[:k])
+            rows[i] = order[:k]
+        return torch.from_numpy(vals), torch.from_numpy(rows)
+
+    compared = exempt = added = 0
+    cap = params.pop("max_total_terms")
+    for q in queries:
+        base = [t for t, _w in q]
+        near.clear()
+        with mock.patch.object(sm, "similarity_topk", topk_f64):
+            ref = sem.expand(base, max_total_terms=1 << 30, **params)
+        ws = np.array([w for _t, w in ref if w < 1.0])
+        if near or (np.abs(np.diff(ws)) < NEAR).any():
+            exempt += 1
+            continue
+        got = expand(q)
+        if [t for t, _w in got] != [t for t, _w in ref[:cap]] or not np.allclose(
+                [w for _t, w in got], [w for _t, w in ref[:cap]], rtol=0,
+                atol=NEAR):
+            raise AssertionError(f"(r) expansion of {base} differs from float64")
+        compared += 1
+        added += len(got) - len(base)
+    params["max_total_terms"] = cap
+    return compared, exempt, added
+
+
+def expanded_phase(ti, oracle_segs, batches, sem, device, loop_secs, card,
+                   tmp):
+    """(r) bench batches expanded through Engine._weighted_terms: one batch
+    oracle-exact over its expanded weighted terms, the card's expansions of
+    that batch against float64, and a depth-2 loop that expands each batch
+    in its requests' time. Returns (launch counts, numbers)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nextsearch_tpu_torch.benchmarks.bench import Pipeline
+
+    expand = expander(ti, sem, device, tmp)
+    spot = batches[0]
+    t = time.perf_counter()
+    expanded = [expand(q) for q in spot]
+    expand_ms = (time.perf_counter() - t) * 1e3
+    lens = np.array([len(q) for q in expanded])
+    reset_counts()
+    res = ti.search_batch(expanded, k=K)
+    counts = launch_counts()
+    spot_check(ti, oracle_segs, expanded[:SPOT], res[:SPOT], {})
+    if not counts["heavy_fused3"]:
+        raise AssertionError(f"(r) launches {launched(counts)}")
+    params = dataclasses.asdict(ti.config.expansion)
+    compared, exempt, added = expansion_check(sem, expand, params, spot)
+    if compared < len(spot) // 2 or added == 0:
+        raise AssertionError(f"(r) expansion check: {compared} compared, "
+                             f"{exempt} exempt, {added} terms added")
+    say(f"(r) expanded batch: {len(spot)} queries, {lens.min()}-{lens.max()} "
+        f"terms (mean {lens.mean():.2f}), expansion {expand_ms:.1f} ms; "
+        f"{SPOT} oracle-exact; expansions equal float64's for {compared} "
+        f"queries, {exempt} exempt as near-ties; launches {launched(counts)}")
+    trips0, rel0 = ti.rescue_trips, ti.relaunches
+    ti.search_batch([expand(q) for q in batches[1]], k=K)  # warm
+    reset_counts()
+    loop = Pipeline(ti, batches[1:], BATCH, 2,
+                    prepare=lambda b: [expand(q) for q in b])
+    r = loop.run(min(loop_secs, MODEL_LOOP_SECS), start=0)
+    loop_counts = launch_counts()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    exp_ms = statistics.median(loop.prepare_s) * 1e3
+    say(f"[{card}] (r) expanded serving loop: batch {BATCH} depth 2 k {K}: "
+        f"qps={r['qps']:.1f} p50_ms={r['p50_req_ms']:.2f} "
+        f"expansion_ms_per_batch={exp_ms:.2f} batches={len(loop.lat)} "
+        f"host_rescued_queries={ti.rescue_trips - trips0} "
+        f"relaunched_batches={ti.relaunches - rel0} "
+        f"launches {launched(loop_counts)}")
+    for name, c in loop_counts.items():
+        counts[name] += c
+    return counts, dict(expand_ms_first_batch=expand_ms, mean_terms=float(lens.mean()),
+                        compared=compared, exempt=exempt, qps=r["qps"],
+                        p50_ms=r["p50_req_ms"], expansion_ms_per_batch=exp_ms)
+
+
+def dense_blocks(ti, queries, device):
+    """How many 64-query blocks of the launch's heavy product hold a query
+    with more nonzero heavy entries than the gather takes (GATHER_CUT):
+    the blocks K1 runs through its dense kernel, reckoned on the host from
+    the launch's own plan; with the compact operands (mix, ids) of the fast
+    launch."""
+    import torch
+
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops.bm25_sparse import heavy_operands
+
+    plan, U = ti.plan_sparse(ti._shortcut_single_heavy(queries, K)[0])
+    plan = torch.as_tensor(plan, device=device)
+    mix, ids = heavy_operands(plan, ti.dense_rows.shape[0], nd=ti.n_dense, U=U,
+                              use_compact=True)
+    count = (mix.to(torch.bfloat16) != 0).sum(dim=1).cpu()
+    cut = min(mix.shape[1], hk.GATHER_CUT)
+    blocks = [int(count[b:b + 64].max()) > cut for b in range(0, len(count), 64)]
+    return sum(blocks), len(blocks), int(count.max()), mix, ids
+
+
+def long_questions_phase(ti, oracle_segs, sem, device, card, reps, tmp):
+    """(s) 512 questions of 10 distinct df-head terms (df rank < n_dense),
+    expanded to the 40-term cap: the blocks that take K1's dense kernel,
+    reckoned from the launch's plan, must be > 0, and the launch must run
+    K1; every result oracle-exact under the fast guard. Then K1 alone on
+    these operands against its plain version (the dense kernels' tolerance)
+    with its time and bound."""
+    import numpy as np
+
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+
+    expand = expander(ti, sem, device, tmp)
+    r = np.random.default_rng(17)
+    ranked = df_ranked_terms(ti.segments[0])
+    raw = [[(ranked[i], 1.0) for i in r.choice(ti.n_dense, 10, replace=False)]
+           for _ in range(BATCH)]
+    questions = [expand(q) for q in raw]
+    lens = np.array([len(q) for q in questions])
+    n_dense_blocks, n_blocks, longest, mix, ids = dense_blocks(
+        ti, questions, device)
+    trips0, rel0 = ti.rescue_trips, ti.relaunches
+    reset_counts()
+    t = time.perf_counter()
+    res = ti.search_batch(questions, k=K)
+    dt = (time.perf_counter() - t) * 1e3
+    counts = launch_counts()
+    if n_dense_blocks == 0 or not counts["heavy_fused3"]:
+        raise AssertionError(f"(s) {n_dense_blocks} dense blocks, launches "
+                             f"{launched(counts)}")
+    spot_check(ti, oracle_segs, questions, res, {})
+    say(f"[{card}] (s) long questions: {BATCH} of 10 head terms expanded to "
+        f"{lens.min()}-{lens.max()} terms; heavy entries per query up to "
+        f"{longest} (gather cut {hk.GATHER_CUT}), U={mix.shape[1]}; "
+        f"{n_dense_blocks} of {n_blocks} 64-query blocks take K1's dense "
+        f"kernel; all {BATCH} oracle-exact; search_batch {dt:.1f} ms; "
+        f"host_rescued_queries={ti.rescue_trips - trips0} "
+        f"relaunched_batches={ti.relaunches - rel0}; launches {launched(counts)}")
+    table = hk.gather_rows_bf16(ids, ti.dense_rows)
+    got = hk.heavy_fused3(mix, table, fast=True)
+    rtol = tc_rtol(mix.shape[1])
+    err = _heavy_check("(s) K1 fast, long questions", got,
+                       hk.heavy_fused3_ref(mix, table, fast=True), rtol)
+    b = heavy_bound(mix, table, True, got)
+    del got
+    ms = timed(lambda: hk.heavy_fused3(mix, table, fast=True), device, reps)
+    plain = timed(lambda: hk.heavy_fused3_ref(mix, table, fast=True), device,
+                  max(2, reps // 2))
+    say(f"[{card}] (s) K1 fast on the long questions' operands: {ms:.3f} ms "
+        f"({ms / n_blocks:.4f} ms a 64-query block, {n_dense_blocks} of "
+        f"{n_blocks} dense), plain {plain:.3f} ms, bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']}); max abs err {err:.3g} within rtol {rtol:.3g}")
+    del table, mix, ids
+    return counts, dict(dense_blocks=n_dense_blocks, blocks=n_blocks,
+                        max_heavy_entries=longest, k1_ms=ms, k1_plain_ms=plain,
+                        k1_bound_ms=b["bound_ms"], k1_max_abs_err=err,
+                        mean_terms=float(lens.mean()))
+
+
+def hybrid_gate(hy, queries, results, k=K):
+    """Hybrid results against _host_hybrid_row (the exact host BM25 top C
+    and the rerank formula over the same doc embeddings): found and doc
+    order equal, scores within rtol 2e-5 (cos summed in another order)."""
+    import numpy as np
+
+    for q, got in zip(queries, results):
+        exp = hy._host_hybrid_row(q, k, CANDIDATES)
+        if got.found != exp.found or got.doc_slots.tolist() != exp.doc_slots.tolist():
+            raise AssertionError(f"hybrid gate: docs differ for {q}")
+        if not np.allclose(got.scores, exp.scores, rtol=2e-5, atol=0):
+            raise AssertionError(f"hybrid gate: scores differ for {q}")
+
+
+def hybrid_phase(ti, batches, sem, device, loop_secs, card):
+    """(t) HybridIndex(beta 0.5) over the index: the doc-embedding build,
+    the gate on 16 queries, a depth-4 loop of batches of 128 at k 10 and
+    100 candidates, and one batch with every heavy row's guard tripped
+    (fast_heavy_eps 1e9), which the gather fixes up on the host. Returns
+    (launch counts, numbers)."""
+    import torch
+
+    from nextsearch_tpu_torch.models.hybrid import HybridIndex
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    hy = HybridIndex(ti, sem, beta=0.5)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t
+    hb = [b[i:i + HYBRID_BATCH] for b in batches[1:5]
+          for i in range(0, len(b), HYBRID_BATCH)]
+    hy.search_batch(hb[0], k=K, candidates=CANDIDATES)  # warm
+    gate_q = hb[1][:16]
+    hybrid_gate(hy, gate_q, hy.search_batch(gate_q, k=K, candidates=CANDIDATES))
+    reset_counts()
+    window, n, li = [], 0, 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < min(loop_secs, MODEL_LOOP_SECS) or not n:
+        window.append(hy.search_batch_async(hb[li % len(hb)], K, CANDIDATES))
+        li += 1
+        if len(window) > 4:
+            hy.search_batch_gather(window.pop(0))
+            n += HYBRID_BATCH
+    while window:
+        hy.search_batch_gather(window.pop(0))
+        n += HYBRID_BATCH
+    qps = n / (time.perf_counter() - t0)
+    counts = launch_counts()
+    say(f"[{card}] (t) hybrid over the sparse index: doc embeddings "
+        f"{tuple(hy.doc_emb.shape)} built in {build_s:.2f} s; 16 queries "
+        f"pass the gate; loop batch {HYBRID_BATCH} depth 4 k {K} candidates "
+        f"{CANDIDATES}: qps={qps:.1f} batches={li}; launches {launched(counts)}")
+    cfg = ti.config
+    rel0, trips0 = ti.relaunches, ti.rescue_trips
+    try:
+        _config(ti, cfg, fast_heavy_eps=1e9)
+        h = hy.search_batch_async(hb[2], K, CANDIDATES)
+        tripped = int((h[3].device_outs[4][:HYBRID_BATCH] < 0.5).sum())
+        res = hy.search_batch_gather(h)
+    finally:
+        ti.config = cfg
+    hybrid_gate(hy, hb[2][:16], res[:16])
+    if tripped == 0 or ti.relaunches != rel0 or ti.rescue_trips != trips0:
+        raise AssertionError(f"(t) forced trip: {tripped} rows tripped")
+    say(f"(t) forced guard trip: {tripped} of {HYBRID_BATCH} rows fixed up on "
+        "the host, no relaunch; 16 pass the gate")
+    del hy
+    return counts, dict(doc_emb_build_s=build_s, qps=qps, tripped_rows=tripped)
+
+
+def models_phase(ti, seg, oracle_segs, batches, device, loop_secs, card, reps):
+    """Phases (p)-(t) on the sparse bench index. Returns (launch totals,
+    numbers, the SemanticIndex)."""
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for name, c in counts.items():
+            total[name] += c
+
+    out = dict(autocomplete=autocomplete_phase(seg, device, card, reps))
+    sem = semantic_index(seg, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, out["expanded"] = expanded_phase(
+            ti, oracle_segs, batches, sem, device, loop_secs, card, tmp)
+        add(counts)
+        counts, out["long_questions"] = long_questions_phase(
+            ti, oracle_segs, sem, device, card, reps, tmp)
+        add(counts)
+    counts, out["hybrid"] = hybrid_phase(ti, batches, sem, device, loop_secs,
+                                         card)
+    add(counts)
+    for name in ("heavy_fused3", "gather_rows_bf16", "mix_lists"):
+        if total[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in (r)-(t)")
+    return total, out, sem
 
 
 def probe_paths(device, shape: dict):
@@ -1376,19 +1857,33 @@ def server_phase(device):
             default = serving_config(os.environ.get("NEXTSEARCH_MODE"))
         if default.device.mode != "fused":
             raise AssertionError(f"server default mode {default.device.mode}")
-        for label, cfg, kernels in (
+        modes = (
             ("sparse", EngineConfig(device=DeviceConfig(
                 mode="sparse", dense_df_ratio=1 / 64)),
              (hk.heavy_fused3, hk.gather_rows_bf16)),
             ("default (fused)", replace(default, device=replace(
                 default.device, dense_df_ratio=1 / 64)), (hk.gather_rows,)),
-        ):
+        )
+        for label, cfg, kernels in modes:
             _serve_and_check(Path(tmp), d, cfg, device, oseg, label, kernels)
+        # an embeddings file in the index directory: expansion, ?hybrid=1
+        ranked = df_ranked_terms(seg)
+        vecs = clustered_vectors(len(ranked))
+        (d / "embeddings.vec").write_text("".join(
+            f"{t} " + " ".join(f"{x:.6f}" for x in v) + "\n"
+            for t, v in zip(ranked, vecs)), encoding="utf-8")
+        for label, cfg, kernels in modes:
+            _serve_and_check(Path(tmp), d, cfg, device, oseg,
+                             f"{label} with embeddings", kernels)
 
 
 def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels):
     """One Engine and HTTP server over the index: /api/search answers equal
-    the oracle's, ?hybrid=1 (no embeddings file) answers the same, and the
+    the oracle's over the query's terms as the engine weights them (its own
+    expansion when an embeddings file was loaded); ?hybrid=1 answers the
+    plain search without embeddings, and with them the reference's hybrid
+    body with the docs and scores of HybridIndex.search_batch;
+    /api/suggest?q=w00 answers AutocompleteIndex.suggest_query's list; the
     requests launched every kernel of `kernels`."""
     import http.client
 
@@ -1399,13 +1894,17 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels):
     from nextsearch_tpu_torch.api.server import ServerContext, make_server
     from nextsearch_tpu_torch.api.stats import StatsTracker
     from nextsearch_tpu_torch.engine import Engine
-    from nextsearch_tpu_torch.index.oracle import oracle_search
+    from nextsearch_tpu_torch.index.oracle import oracle_search_vec
 
-    tmp = tmp / label.split()[0]  # its own search cache, written through
+    tmp = tmp / label.replace(" ", "_")  # its own search cache
     tmp.mkdir()
     eng = Engine(index_dir, config=cfg, cache_dir=tmp, device=device)
     if not eng.reload() or eng.index.n_dense == 0:
         raise AssertionError("server index: reload failed or no dense rows")
+    embeddings = (index_dir / "embeddings.vec").exists()
+    if eng.sem.enabled != embeddings:
+        raise AssertionError(f"server ({label}): semantic index "
+                             f"{eng.sem.enabled}, embeddings file {embeddings}")
     ctx = ServerContext(eng, StatsTracker(tmp / "stats.json"),
                         FeedbackManager(tmp / "feedback.json"),
                         AzureOpenAIConfig("", "", ""))
@@ -1430,23 +1929,44 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels):
         queries = [["w0001", "w0150"], ["w0000", "w0003", "w0400"],
                    ["w0002", "w0250"], ["w0010", "w0020", "w0030"],
                    ["w0005", "w0599"]]
+        expanded = 0
         for terms in queries:
             body = get(f"/api/search?q={'+'.join(terms)}&k={K}")
-            hits, found = oracle_search(oseg, [(t, 1.0) for t in terms], k=K)
+            weighted = eng._weighted_terms(terms)
+            expanded += len(weighted) > len(terms)
+            hits, found = oracle_search_vec(oseg, weighted, k=K)
             got = [(np.float32(x["score"]), x["docId"]) for x in body["results"]]
             exp = [(np.float32(s), doc) for s, _sg, doc in hits]
             if body["found"] != found or got != exp:
                 raise AssertionError(f"/api/search {terms} != oracle ({label})")
             hyb = get(f"/api/search?q={'+'.join(terms)}&k={K}&hybrid=1")
-            if hyb["results"] != body["results"]:
-                raise AssertionError(f"?hybrid=1 {terms} != plain search")
+            if not embeddings:
+                if hyb["results"] != body["results"] or "hybrid" in hyb:
+                    raise AssertionError(f"?hybrid=1 {terms} != plain search")
+                continue
+            want = eng._hybrid_index().search_batch(
+                [weighted], k=K, candidates=cfg.hybrid.candidates)[0]
+            if hyb.get("hybrid") is not True or [x["docId"] for x in hyb["results"]] != [
+                    eng.index.doc_info(int(s))[2] for s in want.doc_slots] or not np.allclose(
+                    [x["hybrid_score"] for x in hyb["results"]], want.scores,
+                    rtol=2e-5, atol=0):
+                raise AssertionError(f"?hybrid=1 {terms} != HybridIndex ({label})")
+            if eng.cache.get(f"{' '.join(terms)}|{K}|hybrid") is None:
+                raise AssertionError("?hybrid=1 not cached under q|K|hybrid")
+        if embeddings and expanded == 0:
+            raise AssertionError(f"server ({label}): no query was expanded")
+        sugg = get("/api/suggest?q=w00&k=5")["suggestions"]
+        if not sugg or sugg != eng.ac.suggest_query("w00", 5):
+            raise AssertionError(f"/api/suggest ({label}): {sugg}")
         c1 = [fn.launches for fn in kernels]
         if not all(b > a for a, b in zip(c0, c1)):
             raise AssertionError(
                 f"server ({label}) requests did not launch "
                 f"{[fn.__name__ for fn in kernels]}: {c0}->{c1}")
         say(f"server {label}: {len(queries)} /api/search answers "
-            f"oracle-exact, ?hybrid=1 equal; launches "
+            f"oracle-exact ({expanded} expanded), ?hybrid=1 "
+            + ("equal to HybridIndex" if embeddings else "equal")
+            + f", /api/suggest?q=w00 {sugg}; launches "
             + ", ".join(f"{fn.__name__} +{b - a}"
                         for fn, a, b in zip(kernels, c0, c1)))
     finally:
@@ -1483,6 +2003,11 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
     oseg = seg.to_oracle_segment()
     launches = main_path(ti, [oseg], batches, device, loop_secs, card)
     ph.done("main path")
+    counts, models, sem = models_phase(ti, seg, [oseg], batches, device,
+                                       loop_secs, card, reps)
+    for name, c in counts.items():
+        launches[name] += c
+    ph.done("models (p)-(t)")
     del ti
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -1495,7 +2020,7 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
         torch.cuda.empty_cache()
     ph.done("bf16 rows")
     counts, k3_fused, fused = fused_phase([oseg], device, n_docs, vocab,
-                                          n_batches, loop_secs, card, reps)
+                                          n_batches, loop_secs, card, reps, sem)
     kern["gather_rows"].update(prefixed("fused_", k3_fused))
     for name, c in counts.items():
         launches[name] += c
@@ -1512,6 +2037,7 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
             raise AssertionError(f"kernel {name} never launched on its path")
     say(f"bf16 rows: {json.dumps(bf16)}")
     say(f"fused: {json.dumps(fused)}")
+    say(f"models: {json.dumps(models)}")
     say(f"total {time.perf_counter() - ph.t0:.1f}s on {card}")
     kern["heavy_fused3"].update(prefixed(
         "bf16_rows_exact_", kern.pop("heavy_fused3_bf16_rows")))

@@ -23,9 +23,7 @@ Concurrent /api/search requests are coalesced into batched device launches
 by api/batching.SearchBatcher instead of serializing behind a mutex.
 
 The port's copy of nextsearch_tpu/api/server.py: ServerContext, ApiHandler
-and make_server are the JAX package's, over the port's Engine (where
-?hybrid=1 answers with the plain BM25 search while no embeddings file
-exists, and raises, answered as any engine error: 500, when one does). main
+and make_server are the JAX package's, over the port's Engine. main
 drops the jax platform, mesh and compile-cache lines; it takes the device
 mode as the JAX package's does (fused by default), and a CUDA device is
 required.

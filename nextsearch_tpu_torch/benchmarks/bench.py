@@ -117,25 +117,33 @@ def parity_gate(ti, oracle_segs, queries) -> None:
 class Pipeline:
     """The serving loop: `depth` batched launches in flight, so the host's
     planning and the card's work overlap. Collects request latencies and,
-    on a card, the event span of each batch."""
+    on a card, the event span of each batch. `prepare`, if given, maps each
+    batch of queries to the batch that is launched (semantic expansion), in
+    the request's time; its seconds per batch go to prepare_s."""
 
-    def __init__(self, ti, batches, batch: int, depth: int):
+    def __init__(self, ti, batches, batch: int, depth: int, prepare=None):
         self.ti, self.batches, self.batch, self.depth = ti, batches, batch, depth
+        self.prepare = prepare
         self.cuda = ti.device.type == "cuda"
         self.n_done = 0
         self.lat: list = []
         self.span_ms: list = []
+        self.prepare_s: list = []
         self.t0 = time.time()
         self._window: list = []
 
     def _launch(self, i: int) -> None:
         ev0 = ev1 = None
+        t = time.time()
+        queries = self.batches[i % len(self.batches)]
+        if self.prepare is not None:
+            queries = self.prepare(queries)
+            self.prepare_s.append(time.time() - t)
         if self.cuda:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
-        t = time.time()
-        h = self.ti.search_batch_async(self.batches[i % len(self.batches)], k=K)
+        h = self.ti.search_batch_async(queries, k=K)
         if self.cuda:
             ev1.record()
         self._window.append((t, h, ev0, ev1))

@@ -1,15 +1,15 @@
 """Engine: index lifecycle + query orchestration over a TorchIndex.
 
 The port's copy of nextsearch_tpu/engine.py (which mirrors
-src/api_engine.cpp: reload, cached batched search, JSON rendering, warmup's
-shape pinning), building the port's TorchIndex on an explicit device.
+src/api_engine.cpp: reload with the autocomplete table, the metadata map
+and the optional semantic embeddings; cached batched search with semantic
+expansion; the hybrid dense rerank; JSON rendering; warmup's shape
+pinning), building the port's TorchIndex, AutocompleteIndex and
+SemanticIndex on an explicit device.
 
-Not ported yet, and so absent here: autocomplete (ROADMAP queue 1 item 10;
-/api/suggest answers with no suggestions), semantic expansion (item 9;
-queries are not expanded), the hybrid dense rerank (item 8;
-search_hybrid answers with the plain search while the index directory has
-no embeddings file, and raises when it has one), serving over a mesh (item 11) and the device trace
-behind NEXTSEARCH_PROFILE_DIR (item 4); the last two raise at construction.
+Not ported yet: serving over a mesh (ROADMAP queue 1 item 11) and the
+device trace behind NEXTSEARCH_PROFILE_DIR (item 4b); both raise at
+construction.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import os
 import threading
 from pathlib import Path
 from struct import error as struct_error
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,9 @@ from .index.artifacts import load_segment_cached
 from .index.metadata import MetadataStore
 from .index.segment import TorchIndex
 from .index.segmentio import discover_segments
+from .models.autocomplete import AutocompleteIndex
+from .models.hybrid import HybridIndex
+from .models.semantic import SemanticIndex
 from .utils.logging import log
 from .utils.profiling import GLOBAL_TRACER
 from .utils.textutil import filter_terms, tokenize
@@ -42,15 +45,6 @@ EMBEDDING_CANDIDATES = (
     "glove.txt",
     "vectors.txt",
 )
-
-
-class _NoAutocomplete:
-    """The autocomplete table until models/autocomplete.py is ported: always
-    empty, so the suggest batcher answers with no suggestions."""
-
-    @staticmethod
-    def empty() -> bool:
-        return True
 
 
 class Engine:
@@ -84,7 +78,8 @@ class Engine:
 
         self.seg_names: List[str] = []
         self.index: Optional[TorchIndex] = None
-        self.ac = _NoAutocomplete()
+        self.ac = AutocompleteIndex(device=self.device)
+        self.sem = SemanticIndex(device=self.device)
         self.metadata: Optional[MetadataStore] = None
         self._renderer = None  # native.NativeRenderer (config.native_render)
 
@@ -141,11 +136,31 @@ class Engine:
             new_index = TorchIndex(
                 loaded, seg_names, self.config, device=self.device
             )
-            log("reload", "autocomplete and semantic expansion are not "
-                "ported yet (ROADMAP queue 1 items 9-10); suggestions are "
-                "empty and queries are not expanded")
+
+            # Autocomplete: df summed across segment lexicons (:92-108).
+            term_to_score: Dict[str, int] = {}
+            for seg in loaded:
+                for i, t in enumerate(seg.terms):
+                    term_to_score[t] = term_to_score.get(t, 0) + int(seg.term_df[i])
+            new_ac = AutocompleteIndex(device=self.device)
+            new_ac.build(term_to_score, self.config.autocomplete.max_candidates)
+
+            # Lazy metadata offsets (:111-113).
             new_metadata = MetadataStore(self.index_dir / "metadata.csv")
             log("metadata", f"map_size={len(new_metadata)}")
+
+            # Semantic embeddings (:116-153).
+            new_sem = SemanticIndex(device=self.device)
+            emb_path = self._embeddings_path()
+            if emb_path is not None:
+                ok = new_sem.load_from_text(emb_path, set(term_to_score))
+                if ok:
+                    log("reload", f"semantic embeddings loaded: "
+                        f"{len(new_sem.terms)} terms, dim={new_sem.dim} "
+                        f"from {emb_path}")
+                else:
+                    log("reload", f"embeddings file found but no usable vectors "
+                        f"loaded: {emb_path} (semantic search disabled)")
             new_renderer = self._build_renderer(
                 new_index, new_metadata, loaded, seg_names
             )
@@ -154,7 +169,9 @@ class Engine:
             with self.mtx:
                 self.index = new_index
                 self.seg_names = seg_names
+                self.ac = new_ac
                 self.metadata = new_metadata
+                self.sem = new_sem
                 self._renderer = new_renderer
             self.cache.load()
             self.ai_overview_cache.load()
@@ -308,7 +325,16 @@ class Engine:
     # ---------------- queries ----------------
 
     def _weighted_terms(self, base_terms: List[str]) -> List[Tuple[str, float]]:
-        # no semantic expansion until models/semantic.py is ported
+        if self.sem.enabled:
+            e = self.config.expansion
+            return self.sem.expand(
+                base_terms,
+                per_term=e.per_term,
+                global_topk=e.global_topk,
+                min_sim=e.min_sim,
+                alpha=e.alpha,
+                max_total_terms=e.max_total_terms,
+            )
         return [(t, 1.0) for t in base_terms]
 
     def search(self, query: str, k: int) -> dict:
@@ -476,16 +502,77 @@ class Engine:
                     break
         return emb_path if emb_path and Path(emb_path).exists() else None
 
+    def _hybrid_index(self):
+        if not self.sem.enabled or self.index is None:
+            return None
+        if getattr(self, "_hybrid", None) is None or self._hybrid.index is not self.index:
+            self._hybrid = HybridIndex(
+                self.index, self.sem, beta=self.config.hybrid.beta
+            )
+        return self._hybrid
+
     def search_hybrid(self, query: str, k: int) -> dict:
-        """BM25 + dense rerank (?hybrid=1). Without an embeddings file there
-        is nothing to rerank with, and the answer is the plain BM25 search,
-        as in the JAX package; with one, the rerank itself is not ported
-        yet."""
-        if self._embeddings_path() is None:
+        """BM25 + dense rerank; reference response shape + hybrid_score.
+
+        Falls back to plain BM25 search when no embeddings are loaded.
+        """
+        bm = self.config.bm25
+        K = max(bm.k_min, min(int(k), bm.k_max))
+        cache_key = f"{query}|{K}|hybrid"
+        # Snapshot under the lock; device work and rendering run without
+        # it (as in search_batch). reload() swaps whole objects atomically
+        # and the LRU cache has its own lock.
+        with self.mtx:
+            hy = self._hybrid_index()
+            index = self.index
+            metadata = self.metadata
+            seg_count = len(self.seg_names)
+        if hy is None:
             return self.search(query, k)
-        raise NotImplementedError(
-            "the hybrid dense rerank is not ported: ROADMAP queue 1 item 8"
-        )
+        cached = self.cache.get(cache_key)
+        if cached is not None:
+            return cached
+        base_terms = filter_terms(tokenize(query))
+        res = {
+            "query": query,
+            "k": K,
+            "segments": seg_count,
+            "hybrid": True,
+            "results": [],
+        }
+        if not base_terms or not seg_count:
+            return res
+        qterms_w = self._weighted_terms(base_terms)
+        if not qterms_w:
+            return res
+        with GLOBAL_TRACER.span("search.hybrid"):
+            qres = hy.search_batch(
+                [qterms_w], k=K, candidates=self.config.hybrid.candidates
+            )[0]
+        res["found"] = int(qres.found)
+        for score, slot in zip(qres.scores, qres.doc_slots):
+            seg_name, cord_uid, doc_id = index.doc_info(int(slot))
+            r = {
+                "score": float(score),
+                "hybrid_score": float(score),
+                "segment": seg_name,
+                "docId": doc_id,
+                "cord_uid": cord_uid,
+            }
+            meta = metadata.fetch(cord_uid) if metadata else None
+            if meta is not None:
+                if meta.title:
+                    r["title"] = meta.title
+                url = meta.url.split(";")[0]
+                if url:
+                    r["url"] = url
+                if meta.publish_time:
+                    r["publish_time"] = meta.publish_time
+                if meta.author:
+                    r["author"] = meta.author
+            res["results"].append(r)
+        self.cache.put(cache_key, res)
+        return dict(res)
 
     def suggest(self, user_input: str, limit: int) -> dict:
         ac_cfg = self.config.autocomplete

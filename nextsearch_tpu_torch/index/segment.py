@@ -62,9 +62,12 @@ _UNPORTED_ENV = (
 class _HostCopy:
     """Results on their way to the host: a non-blocking copy of each tensor
     into a pinned buffer plus the CUDA event that marks their completion
-    (on the CPU the tensors are already host memory)."""
+    (on the CPU the tensors are already host memory). device_outs keeps the
+    tensors themselves, so a consumer on the device (the hybrid rerank)
+    chains on them without a round trip through the host."""
 
     def __init__(self, *outs: torch.Tensor):
+        self.device_outs = list(outs)
         if outs[0].device.type == "cuda":
             self.hosts = [
                 torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(

@@ -18,7 +18,9 @@ bit; K3's two copy kernels bit for bit, and P1's tiled kernel at ragged
 shapes. The whole TorchIndex on
 the card, on the packed, unified and windowed-selection paths and with bf16
 dense rows, and in the fused, exact and fast modes, is held against the same
-index on the CPU and against the oracle.
+index on the CPU and against the oracle. The prefix top-k, similarity top-k
+and hybrid rerank ops run on the card as on the CPU, and HybridIndex's
+results equal its host rows.
 """
 
 import numpy as np
@@ -712,3 +714,93 @@ def test_torch_index_modes_on_card_match_cpu_and_oracle(cuda, mode, kw):
         for x, y in zip(again, first):
             assert np.array_equal(x.scores.view(np.uint32),
                                   y.scores.view(np.uint32))
+
+
+# ------------------------------------------- autocomplete, expansion, hybrid
+
+
+@pytest.mark.cuda
+def test_prefix_topk_on_card_equals_cpu(cuda):
+    """prefix_range_topk and prefix_window_topk on the card give the CPU's
+    values and indices bit for bit (ties by the lower index)."""
+    from nextsearch_tpu_torch.ops import prefix
+
+    g = torch.Generator().manual_seed(4)
+    scores = torch.randint(1, 6, (4096,), generator=g, dtype=torch.int32)
+    scores[-300:] = -1
+    lo = torch.randint(0, 4096, (64,), generator=g, dtype=torch.int32)
+    hi = torch.minimum(lo + torch.randint(0, 300, (64,), generator=g,
+                                          dtype=torch.int32),
+                       torch.tensor(4096, dtype=torch.int32))
+    for fn, kw in ((prefix.prefix_range_topk, {}),
+                   (prefix.prefix_window_topk, {"W": 512})):
+        a = fn(scores.to(cuda), lo.to(cuda), hi.to(cuda), L=10, **kw)
+        b = fn(scores, lo, hi, L=10, **kw)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_dense_ops_on_card_match_cpu(cuda):
+    """similarity_topk (rows equal, sims within 2e-6) and hybrid_rerank (doc
+    order equal, scores within rtol 2e-5) on the card against the CPU; both
+    refuse to run a product on the card while TF32 is allowed."""
+    from nextsearch_tpu_torch.ops import dense
+
+    g = torch.Generator().manual_seed(5)
+    emb = torch.nn.functional.normalize(torch.randn(5000, 64, generator=g), dim=1)
+    q = emb[:7] + 0.3 * torch.randn(7, 64, generator=g)
+    q = torch.nn.functional.normalize(q, dim=1)
+    banned = torch.zeros(5000, dtype=torch.bool)
+    banned[:3] = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sv, sr = dense.similarity_topk(emb.to(cuda), q.to(cuda), banned.to(cuda),
+                                   0.1, k=9)
+    cv, cr = dense.similarity_topk(emb, q, banned, 0.1, k=9)
+    assert torch.equal(sr.cpu(), cr)
+    assert torch.allclose(sv.cpu(), cv, rtol=0, atol=2e-6)
+    cand = torch.randint(0, 5000, (7, 100), generator=g, dtype=torch.int32)
+    bm25 = torch.rand(7, 100, generator=g) * 5
+    bm25[:, 90:] = 0.0
+    a = dense.hybrid_rerank(emb.to(cuda), q.to(cuda), cand.to(cuda),
+                            bm25.to(cuda), 0.5, K=10)
+    b = dense.hybrid_rerank(emb, q, cand, bm25, 0.5, K=10)
+    assert torch.equal(a[1].cpu(), b[1]) and torch.equal(a[2].cpu(), b[2])
+    assert torch.allclose(a[0].cpu(), b[0], rtol=2e-5, atol=0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            dense.similarity_topk(emb.to(cuda), q.to(cuda), banned.to(cuda),
+                                  0.1, k=9)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sparse", "fused"])
+def test_hybrid_index_on_card_matches_host_rows(cuda, mode):
+    """HybridIndex on the card: doc embeddings within 1e-6 of the CPU
+    build, and every result equal to _host_hybrid_row over the card's own
+    doc embeddings (doc order exact, scores within rtol 2e-5)."""
+    from nextsearch_tpu_torch.config import DeviceConfig, EngineConfig
+    from nextsearch_tpu_torch.index.segment import TorchIndex
+    from nextsearch_tpu_torch.models.hybrid import HybridIndex
+    from nextsearch_tpu_torch.models.semantic import SemanticIndex
+    from nextsearch_tpu_torch.tools.synthetic import build_corpus, sample_queries
+
+    seg, probs = build_corpus(20000, 3000)
+    cfg = EngineConfig(device=DeviceConfig(mode=mode, posting_block=64,
+                                           dense_df_ratio=1 / 256))
+    r = np.random.default_rng(6)
+    vecs = r.standard_normal((3000, 32)).astype(np.float32)
+    hys = []
+    for dev in (cuda, "cpu"):
+        sem = SemanticIndex(device=dev)
+        assert sem.load_from_arrays(seg.terms, vecs)
+        hys.append(HybridIndex(TorchIndex([seg], config=cfg, device=dev), sem))
+    assert torch.allclose(hys[0].doc_emb.cpu(), hys[1].doc_emb, rtol=0, atol=1e-6)
+    batch = sample_queries(probs, 64, 64, seed=4)[0]
+    for q, x in zip(batch, hys[0].search_batch(batch, k=10)):
+        y = hys[0]._host_hybrid_row(q, 10, 100)
+        assert x.found == y.found
+        assert np.array_equal(x.doc_slots, y.doc_slots)
+        assert np.allclose(x.scores, y.scores, rtol=2e-5, atol=0)

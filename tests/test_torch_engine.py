@@ -105,11 +105,13 @@ def test_http_search_bodies_equal_jax_engine(index_dir, tmp_path):
             assert b1 == b2, q
             hits += len(b1["results"])
         assert hits > 10
-        # autocomplete is not ported: the same body with no suggestions
-        st1, b1 = _get(port[0], "/api/suggest?q=cov&k=3")
-        st2, b2 = _get(ref[0], "/api/suggest?q=cov&k=3")
-        assert st1 == st2 == 200 and b2["suggestions"]
-        assert b1 == {**b2, "suggestions": []}
+        for q in ("cov", "vac", "the+co", "influenzas", "zz"):
+            st1, b1 = _get(port[0], f"/api/suggest?q={q}&k=3")
+            st2, b2 = _get(ref[0], f"/api/suggest?q={q}&k=3")
+            assert st1 == st2 == 200 and b1 == b2, q
+        assert b1["suggestions"] == [] and _get(
+            port[0], "/api/suggest?q=co&k=3")[1]["suggestions"] == [
+                "covid", "coronavirus"]
         for path, method, body in (
             ("/api/search", "GET", None),            # 400: missing q
             ("/api/suggest", "GET", None),           # 400: missing q
@@ -135,37 +137,86 @@ def test_http_search_bodies_equal_jax_engine(index_dir, tmp_path):
             ctx.batcher.shutdown()
 
 
+def _write_embeddings(path):
+    """Clustered 16-dim vectors for the index's terms (and one it lacks):
+    in-cluster cosines about 0.7, so queries expand."""
+    clusters = [["covid", "coronavirus", "transmission", "dynamics"],
+                ["vaccine", "immunity", "efficacy", "influenza"],
+                ["trial", "results", "study", "absent"]]
+    r = np.random.default_rng(21)
+    lines = []
+    for terms in clusters:
+        centre = r.normal(size=16)
+        for t in terms:
+            v = centre + 0.65 * r.normal(size=16)
+            lines.append(t + " " + " ".join(f"{x:.6f}" for x in v))
+    path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+
+
+def _same_body(got, want):
+    """Equal bodies, scores within rtol 1e-5: the expansion weights come
+    from similarities that the two packages sum in different orders."""
+    got, want = dict(got), dict(want)
+    for body in (got, want):
+        body.pop("cache_lookup_ms", None)  # a time
+    gr, wr = got.pop("results"), want.pop("results")
+    assert got == want
+    assert [{**r, "score": 0, "hybrid_score": 0} for r in gr] == [
+        {**r, "score": 0, "hybrid_score": 0} for r in wr]
+    for a, b in zip(gr, wr):
+        assert a["score"] == pytest.approx(b["score"], rel=1e-5, abs=0)
+        if "hybrid_score" in b:
+            assert a["hybrid_score"] == a["score"]
+
+
 @pytest.mark.parametrize("embeddings", [False, True])
-def test_hybrid_raises_and_the_handler_answers_500(index_dir, tmp_path,
-                                                   embeddings, monkeypatch):
+def test_hybrid_param_answers_the_reference_body(index_dir, tmp_path,
+                                                 embeddings, monkeypatch):
     """?hybrid=1 reaches search_hybrid. With no embeddings file it answers
     200 with the plain BM25 result, as the reference does when it has no
-    semantic index; with a file present the rerank is needed, and it raises
-    naming its ROADMAP item: the handler answers as for any engine error.
-    Nothing of jax runs."""
+    semantic index. With one, both packages expand every query and
+    ?hybrid=1 answers 200 with the reference's body ("hybrid": true,
+    hybrid_score), cached under "{q}|{K}|hybrid"."""
     monkeypatch.delenv("EMBEDDINGS_PATH", raising=False)
     if embeddings:
         emb = tmp_path / "glove.txt"
-        emb.write_text("covid 0.1 0.2 0.3\n", encoding="utf-8")
+        _write_embeddings(emb)
         monkeypatch.setenv("EMBEDDINGS_PATH", str(emb))
-    eng = TorchEngine(index_dir, config=PORT_CFG, cache_dir=tmp_path,
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    ref = _serve(JaxEngine(index_dir, config=SPARSE_CFG,
+                           cache_dir=tmp_path / "jax"), tmp_path / "jax",
+                 JAX_API)
+    eng = TorchEngine(index_dir, config=PORT_CFG, cache_dir=tmp_path / "torch",
                       device="cpu")
-    srv, ctx = _serve(eng, tmp_path, PORT_API)
+    srv, ctx = _serve(eng, tmp_path / "torch", PORT_API)
     try:
-        st, plain = _get(srv, "/api/search?q=covid&k=5")
-        assert st == 200 and plain["results"]
+        assert eng.sem.enabled == ref[1].engine.sem.enabled == embeddings
+        for q in QUERIES:
+            st, plain = _get(srv, f"/api/search?q={q}&k=5")
+            st2, plain_ref = _get(ref[0], f"/api/search?q={q}&k=5")
+            assert st == st2 == 200
+            _same_body(plain, plain_ref)
+            st, body = _get(srv, f"/api/search?q={q}&k=5&hybrid=1")
+            st2, body_ref = _get(ref[0], f"/api/search?q={q}&k=5&hybrid=1")
+            assert st == st2 == 200
+            _same_body(body, body_ref)
+            if embeddings:
+                assert body["hybrid"] is True
+                assert eng.cache.get(f"{q.replace('+', ' ')}|5|hybrid") is not None
+            else:
+                assert "hybrid" not in body and body["results"] == plain["results"]
         if embeddings:
-            with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-                eng.search_hybrid("covid", 5)
-            assert _get(srv, "/api/search?q=covid&k=5&hybrid=1") == (
-                500, {"error": "internal server error"})
-        else:
-            assert eng.search_hybrid("covid", 5) == eng.search("covid", 5)
-            st, body = _get(srv, "/api/search?q=covid&k=5&hybrid=1")
-            assert st == 200 and body["results"] == plain["results"]
+            # expansion adds terms: "covid" alone finds uid03 through
+            # "coronavirus"
+            st, b = _get(srv, "/api/search?q=covid&k=5")
+            assert {r["cord_uid"] for r in b["results"]} == {"uid01", "uid03"}
+            assert eng._weighted_terms(["covid"])[0] == ("covid", 1.0)
+            assert len(eng._weighted_terms(["covid"])) > 1
     finally:
-        srv.shutdown()
-        ctx.batcher.shutdown()
+        for s, c in ((srv, ctx), ref):
+            s.shutdown()
+            c.batcher.shutdown()
 
 
 def test_engine_rejects_mesh_and_other_modes(index_dir, tmp_path):
@@ -181,10 +232,10 @@ def test_engine_rejects_mesh_and_other_modes(index_dir, tmp_path):
                     device="cpu").reload()
 
 
-def test_server_main_requires_sparse_and_usage(capsys):
+def test_server_main_refuses_bad_arguments_with_usage(capsys):
     """The server's main refuses an unknown --mode (naming the four it
     takes), a --mode without a value, --mesh, and a missing index directory
-    (usage). The name dates from the sparse-only server."""
+    (usage)."""
     from nextsearch_tpu_torch.api.server import main
 
     assert main(["--mode", "dense", "x"]) == 1
