@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port's BM25 search paths (the sparse mode and the
 fused, exact and fast modes), its autocomplete, semantic expansion and hybrid
-rerank, and its HTTP server on one CUDA card.
+rerank, its sharded backend, and its HTTP server on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -74,6 +74,24 @@ non-zero before the last line:
    _host_hybrid_row (doc order exact, scores rtol 2e-5), a 3 s depth-4 loop
    of batches of 128 at 100 candidates, and a batch with every heavy
    row's guard tripped (fast_heavy_eps 1e9), fixed up on the host.
+   (u) the sharded backend (nextsearch_tpu_torch/parallel/), each path's
+   launches counted from zero: (u1) a ShardedIndex on a (1,1) mesh of the
+   card at the bench sparse configuration, pinned from the same batches:
+   the guarded fast launch (K2 + K1), fast off (K3 + K1) and a forced trip
+   of more than 8 queries (the full-table K1 relaunch), each spot-checked
+   against the oracle and equal to the TorchIndex's results for the batch
+   (scores bit for bit, (segment, doc), found); its device ms per batch
+   (profile_paths.py's trace); a 5 s depth-2 loop beside the main path's
+   default loop, then 3 s loops in turns (TorchIndex, sharded, sharded,
+   TorchIndex). (u2) a (1,4) mesh with all four shards on the card, over
+   the bench corpus cut by doc range into four 250k-doc segments (each with
+   its own N, avgdl and scores): n_dense per shard, index bytes and peak
+   memory; the guarded fast launch (K2 + K1 per shard) and a forced trip of
+   8 queries rescued on the host, oracle-exact across the merge; device ms
+   per batch and the merge's ms; one batch of a fused (1,4) index at
+   bench.py's fused configuration (K3 once per shard). (u3)
+   dryrun_multichip(4): the toy and the production passes on (2,2) and
+   (1,4), oracle-exact.
 5. bf16 rows: the f32 index is freed and a TorchIndex with
    dense_rows_bf16 is built over the same corpus and configuration; (i)
    the compact launch (K3 over bf16 rows, K1 exact), (j) the full-table
@@ -110,7 +128,9 @@ non-zero before the last line:
    embeddings.vec in the index directory, in both modes: searches equal
    the oracle over the engine's expanded terms, ?hybrid=1 answers the
    reference's hybrid body with HybridIndex.search_batch's docs, cached
-   under "q|K|hybrid".
+   under "q|K|hybrid". (u4) Both again in sparse mode over --mesh 1,1
+   (serving_mesh: a ShardedIndex), where ?hybrid=1 takes the "hybrid_host"
+   path.
 
 Every path's launches are counted from zero just before it and read just
 after; a kernel of the path that never launched fails the run.
@@ -959,8 +979,9 @@ def _config(ti, cfg, **device_fields):
 
 def main_path(ti, oracle_segs, batches, device, loop_secs: float, card: str):
     """Launches (a)-(h), then the pipelined loops; returns each kernel's
-    launch count summed over all of them."""
+    launch count summed over all of them, and each loop's numbers."""
     memo: dict = {}
+    loops: dict = {}
     spot = batches[0]
     total = dict.fromkeys(KERNELS, 0)
 
@@ -1021,7 +1042,9 @@ def main_path(ti, oracle_segs, batches, device, loop_secs: float, card: str):
                 {k1: 2, k2: 1, k4: 2})
             with mock.patch.dict(os.environ, NEXTSEARCH_FAST_HEAVY="0"):
                 run("(h) K4 compact exact", {k1: 1, k3: 1, k4: 1})
-        add(serving_loop(ti, batches, device, loop_secs, "default", card)[0])
+        counts, loops["default"] = serving_loop(ti, batches, device, loop_secs,
+                                                "default", card)
+        add(counts)
         config(unified=True)
         add(serving_loop(ti, batches, device, loop_secs, "unified", card)[0])
         config()
@@ -1034,7 +1057,7 @@ def main_path(ti, oracle_segs, batches, device, loop_secs: float, card: str):
     for name in (k1, k2, k3, k4, k5, "mix_lists"):
         if total[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-    return total
+    return total, loops
 
 
 def oracle_table(oseg, terms):
@@ -1687,14 +1710,17 @@ def long_questions_phase(ti, oracle_segs, sem, device, card, reps, tmp):
     ms = timed(lambda: hk.heavy_fused3(mix, table, fast=True), device, reps)
     plain = timed(lambda: hk.heavy_fused3_ref(mix, table, fast=True), device,
                   max(2, reps // 2))
+    library = heavy_library_ms(mix, table, True, device, reps)
     say(f"[{card}] (s) K1 fast on the long questions' operands: {ms:.3f} ms "
         f"({ms / n_blocks:.4f} ms a 64-query block, {n_dense_blocks} of "
-        f"{n_blocks} dense), plain {plain:.3f} ms, bound {b['bound_ms']:.3f} ms "
-        f"({b['bound_by']}); max abs err {err:.3g} within rtol {rtol:.3g}")
+        f"{n_blocks} dense), plain {plain:.3f} ms, torch.matmul {library:.3f} "
+        f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}); max abs err "
+        f"{err:.3g} within rtol {rtol:.3g}")
     del table, mix, ids
     return counts, dict(dense_blocks=n_dense_blocks, blocks=n_blocks,
                         max_heavy_entries=longest, k1_ms=ms, k1_plain_ms=plain,
-                        k1_bound_ms=b["bound_ms"], k1_max_abs_err=err,
+                        k1_library_ms=library, k1_bound_ms=b["bound_ms"],
+                        k1_bound_by=b["bound_by"], k1_max_abs_err=err,
                         mean_terms=float(lens.mean()))
 
 
@@ -1797,6 +1823,308 @@ def models_phase(ti, seg, oracle_segs, batches, device, loop_secs, card, reps):
     return total, out, sem
 
 
+# ---------------------------------------------------------------- sharded:
+# the (dp, seg) mesh backend (nextsearch_tpu_torch/parallel/) on the bench
+# corpus
+
+U2_SHARDS = 4
+PAIR_SECS = 3.0  # each loop of (u1)'s TorchIndex/sharded pairs
+
+
+def doc_range_segments(seg, n: int):
+    """The segment cut into n segments of consecutive doc ranges (docs
+    [i N / n, (i + 1) N / n), renumbered from 0), each with its own N,
+    avgdl and eager scores, as an index of n segments holds them."""
+    import numpy as np
+
+    from nextsearch_tpu_torch.index.builder import SegmentArrays, eager_scores
+
+    vocab = len(seg.terms)
+    term_of = np.repeat(np.arange(vocab, dtype=np.int32),
+                        seg.term_df.astype(np.int64))
+    cuts = [seg.N * i // n for i in range(n + 1)]
+    out = []
+    for lo, hi in zip(cuts, cuts[1:]):
+        keep = (seg.post_doc >= lo) & (seg.post_doc < hi)
+        df = np.bincount(term_of[keep], minlength=vocab).astype(np.int32)
+        offs = np.zeros(vocab + 1, np.int64)
+        np.cumsum(df, out=offs[1:])
+        doc_len = seg.doc_len[lo:hi].copy()
+        part = SegmentArrays(
+            terms=seg.terms, term_df=df, term_offsets=offs,
+            post_doc=(seg.post_doc[keep] - lo).astype(np.int32),
+            post_tf=seg.post_tf[keep], doc_len=doc_len, N=hi - lo,
+            avgdl=float(np.float32(doc_len.sum()) / np.float32(hi - lo)),
+            cord_uids=seg.cord_uids[lo:hi])
+        part.post_score = eager_scores(part)
+        out.append(part)
+    return out
+
+
+def same_as_single(si, ti, got, want, label):
+    """Sharded results equal TorchIndex's for the same batch: scores bit
+    for bit, (segment, doc) by locate, found."""
+    import numpy as np
+
+    for qi, (a, b) in enumerate(zip(got, want)):
+        if (a.found != b.found
+                or not np.array_equal(a.scores.view(np.uint32),
+                                      b.scores.view(np.uint32))
+                or [si.locate(int(x)) for x in a.doc_slots]
+                != [ti.locate(int(x)) for x in b.doc_slots]):
+            raise AssertionError(f"{label}: query {qi} differs from TorchIndex")
+
+
+def traced_ms(index, batches, device, n: int = 10):
+    """Device ms per batch of n serial batches (the union of the trace's
+    kernel, memcpy and memset intervals: profile_paths.py's reading), or
+    None off the card."""
+    if device.type != "cuda":
+        return None
+    import profile_paths
+
+    def serial():
+        for b in batches[1:1 + n]:
+            index.search_batch(b, k=K)
+
+    return profile_paths.traced(serial, n)["device_ms_per_batch"]
+
+
+def merge_ms(si, queries, device, reps):
+    """Device ms of one batch's merge: merge_shards timed on the parts that
+    a real launch of `queries` handed it (the shards' candidates on the
+    merge device: a cat, the canonical sort, the found sum and guard min)."""
+    from nextsearch_tpu_torch.parallel import sharded as sh
+
+    seen = []
+    real = sh.merge_shards
+
+    def capture(parts, **kw):
+        seen.append((parts, kw))
+        return real(parts, **kw)
+
+    with mock.patch.object(sh, "merge_shards", capture):
+        si.search_batch(queries, k=K)
+    parts, kw = seen[0]
+    return timed(lambda: real(parts, **kw), device, reps), parts[0][0].shape
+
+
+def sharded_launches(si, oracle_segs, spot, total, memo, want=None, ti=None):
+    """A launch runner for phase (u): one batch through search_batch, the
+    launch counts reset before and read after, SPOT queries spot-checked
+    against the oracle, all of them against TorchIndex's `want` if given."""
+    def run(label, *expect, queries=None):
+        queries = spot if queries is None else queries
+        reset_counts()
+        t = time.perf_counter()
+        res = si.search_batch(queries, k=K)
+        dt = time.perf_counter() - t
+        counts = launched(launch_counts())
+        spot_check(si, oracle_segs, queries[:SPOT], res[:SPOT], memo)
+        if want is not None:
+            same_as_single(si, ti, res, want, label)
+        expect = [with_lists(e) for e in expect]
+        if counts not in expect:
+            raise AssertionError(f"{label}: launches {counts} not in {expect}")
+        for name, c in counts.items():
+            total[name] += c
+        say(f"launch {label}: {dt * 1e3:.1f} ms, {min(SPOT, len(queries))} "
+            f"queries oracle-exact"
+            + (f", all {len(queries)} equal to TorchIndex's" if want else "")
+            + f", launches {counts}")
+        return res
+    return run
+
+
+def sharded_1x1(ti, seg, oseg, batches, device, loop_secs, card, main_qps,
+                reps):
+    """(u1) a (1,1) mesh on the card at the bench sparse configuration,
+    pinned from the same batches: launches (a) guarded fast, (b) fast off,
+    (c) a forced trip of more than 8 queries that relaunches K1 over the
+    full table, each oracle-exact and equal to TorchIndex's results; the
+    device ms per batch; depth-2 loops beside the main path's, and paired
+    with TorchIndex's in turns (TorchIndex, sharded, sharded, TorchIndex)
+    so that both meet the same host."""
+    import torch
+
+    from nextsearch_tpu_torch.parallel import ShardedIndex, make_mesh
+
+    t = time.perf_counter()
+    si = ShardedIndex([seg], make_mesh(1, 1, devices=[device]), config=ti.config)
+    build_s = time.perf_counter() - t
+    pins = si.pin_shapes(batches, scope_q=True)
+    say(f"(u1) sharded (1,1): capacity {si.shard_capacity} n_dense "
+        f"{si.per_shard_rows} n_light {si.n_light} built in {build_s:.1f} s; "
+        f"pins {pins}")
+    spot = batches[0]
+    want = ti.search_batch(spot, k=K)
+    total = dict.fromkeys(KERNELS, 0)
+    run = sharded_launches(si, [oseg], spot, total, {}, want, ti)
+    k1, k2, k3 = "heavy_fused3", "gather_rows_bf16", "gather_rows"
+    cfg = si.config
+    try:
+        with mock.patch.dict(os.environ, NEXTSEARCH_TRIP_RESCUE="8"):
+            run("(u1a) (1,1) guarded fast", {k1: 1, k2: 1}, {k1: 2, k2: 1})
+            with mock.patch.dict(os.environ, NEXTSEARCH_FAST_HEAVY="0"):
+                run("(u1b) (1,1) compact exact", {k1: 1, k3: 1})
+            _config(si, cfg, fast_heavy_eps=1e9)
+            r0 = si.relaunches
+            run("(u1c) (1,1) tripped -> full-table exact relaunch",
+                {k1: 2, k2: 1})
+            if si.relaunches != r0 + 1:
+                raise AssertionError("(u1c) did not relaunch")
+    finally:
+        si.config = cfg
+    dev_ms = traced_ms(si, batches, device)
+    counts, loop = serving_loop(si, batches, device, loop_secs,
+                                "sharded (1,1)", card)
+    for name, c in counts.items():
+        total[name] += c
+    overhead = (main_qps - loop["qps"]) / main_qps * 100.0
+    say(f"[{card}] (u1) sharded (1,1) loop qps={loop['qps']:.1f} beside the "
+        f"main path's default loop qps={main_qps:.1f}: overhead "
+        f"{overhead:.2f}%; device ms per batch "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.3f}"))
+    paired = {"TorchIndex": [], "sharded": []}
+    for label, index in (("TorchIndex", ti), ("sharded", si), ("sharded", si),
+                         ("TorchIndex", ti)):
+        counts, r = serving_loop(index, batches, device, PAIR_SECS,
+                                 f"paired {label}", card)
+        if index is si:
+            for name, c in counts.items():
+                total[name] += c
+        paired[label].append(r["qps"])
+    q_ti, q_si = (statistics.mean(paired[k]) for k in ("TorchIndex", "sharded"))
+    paired_overhead = (q_ti - q_si) / q_ti * 100.0
+    say(f"[{card}] (u1) paired loops (TorchIndex, sharded, sharded, "
+        f"TorchIndex): TorchIndex {paired['TorchIndex']} sharded "
+        f"{paired['sharded']} QPS: overhead {paired_overhead:.2f}%")
+    del si
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return total, dict(build_s=build_s, qps=loop["qps"], main_qps=main_qps,
+                       overhead_pct=overhead, p50_ms=loop["p50_ms"],
+                       stream_span_ms_per_batch=loop["stream_span_ms_per_batch"],
+                       device_ms_per_batch=dev_ms,
+                       peak_allocated=loop["peak_allocated"],
+                       paired_qps=paired, paired_overhead_pct=paired_overhead)
+
+
+def sharded_1x4(seg, batches, device, card, reps):
+    """(u2) a (1,4) mesh with all four shards on the one card, over the
+    bench corpus cut by doc range into four 250k-doc segments, at the bench
+    sparse configuration (each shard's dense rows built on the card):
+    the guarded fast launch and a forced trip of at most 8 queries (host
+    rescue), oracle-exact across the merge, the device ms per batch and the
+    merge's; then a fused-mode index at bench.py's fused configuration and
+    one batch oracle-exact with K3 launched once per shard."""
+    import torch
+
+    from nextsearch_tpu_torch.config import DeviceConfig, EngineConfig
+    from nextsearch_tpu_torch.parallel import ShardedIndex, make_mesh
+
+    t = time.perf_counter()
+    segs = doc_range_segments(seg, U2_SHARDS)
+    osegs = [s.to_oracle_segment() for s in segs]
+    cut_s = time.perf_counter() - t
+    mesh = make_mesh(1, U2_SHARDS, devices=[device] * U2_SHARDS)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device) if cuda else 0
+    common = dict(posting_block=64, heavy_buckets=(512,), rescore_margin=32)
+    t = time.perf_counter()
+    si = ShardedIndex(segs, mesh, config=EngineConfig(device=DeviceConfig(
+        mode="sparse", dense_df_ratio=1 / 1024, dense_max_bytes=7 << 30,
+        **common)))
+    build_s = time.perf_counter() - t
+    pins = si.pin_shapes(batches, scope_q=True)
+    hbm = si.hbm_bytes()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    say(f"[{card}] (u2) sharded (1,4) on one card: {U2_SHARDS} segments of "
+        f"{[s.N for s in segs]} docs (cut in {cut_s:.1f} s); capacity "
+        f"{si.shard_capacity} n_dense per shard {si.per_shard_rows} n_light "
+        f"{si.n_light}; built in {build_s:.1f} s; index bytes "
+        + " ".join(f"{k}={v}" for k, v in hbm.items())
+        + f"; allocated before {base}, peak {peak}; pins {pins}")
+    spot = batches[0]
+    total = dict.fromkeys(KERNELS, 0)
+    memo: dict = {}
+    run = sharded_launches(si, osegs, spot, total, memo)
+    k1, k2, k3 = "heavy_fused3", "gather_rows_bf16", "gather_rows"
+    S = U2_SHARDS
+    cfg = si.config
+    try:
+        with mock.patch.dict(os.environ, NEXTSEARCH_TRIP_RESCUE="8"):
+            run("(u2a) (1,4) guarded fast", {k1: S, k2: S}, {k1: 2 * S, k2: S})
+            _config(si, cfg, fast_heavy_eps=1e9)
+            trips0, r0 = si.rescue_trips, si.relaunches
+            run("(u2b) (1,4) forced trip, host rescue", {k1: S, k2: S},
+                queries=[q for q in spot if len(q) > 1][:8])
+            if si.rescue_trips == trips0 or si.relaunches != r0:
+                raise AssertionError("(u2b) no host rescue")
+            say(f"(u2b) {si.rescue_trips - trips0} of 8 queries tripped and "
+                f"were rescued on the host ({si.rescue_ms:.1f} ms in all)")
+    finally:
+        si.config = cfg
+    dev_ms = traced_ms(si, batches, device)
+    m_ms, m_shape = merge_ms(si, spot, device, reps)
+    say(f"[{card}] (u2) device ms per batch "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.3f}")
+        + f"; merge of {S} x {tuple(m_shape)} candidates {m_ms:.4f} ms a batch")
+    out = dict(segments=[s.N for s in segs], n_dense=si.per_shard_rows,
+               n_light=si.n_light, build_s=build_s, hbm_bytes=hbm["total"],
+               allocated_before=base, peak_allocated=peak,
+               device_ms_per_batch=dev_ms, merge_ms=m_ms)
+    del si
+    if cuda:
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sf = ShardedIndex(segs, mesh, config=EngineConfig(device=DeviceConfig(
+        mode="fused", dense_df_ratio=1 / 256, dense_max_bytes=2 << 30,
+        **common)))
+    sf.pin_shapes(batches, scope_q=True)
+    say(f"(u2) fused sharded (1,4): n_dense per shard {sf.per_shard_rows}, "
+        f"built in {time.perf_counter() - t:.1f} s")
+    run = sharded_launches(sf, osegs, spot, total, memo)
+    run("(u2c) (1,4) fused", {k3: S})
+    out["fused_device_ms_per_batch"] = traced_ms(sf, batches, device, n=4)
+    del sf
+    if cuda:
+        torch.cuda.empty_cache()
+    return total, out
+
+
+def sharded_phase(ti, seg, oseg, batches, device, loop_secs, card, main_qps,
+                  reps):
+    """Phase (u): (u1) the (1,1) mesh beside TorchIndex, (u2) the (1,4) mesh
+    on one card, (u3) dryrun_multichip(4) over the cards. Returns (launch
+    totals, numbers)."""
+    from nextsearch_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    total, u1 = sharded_1x1(ti, seg, oseg, batches, device, loop_secs, card,
+                            main_qps, reps)
+    counts, u2 = sharded_1x4(seg, batches, device, card, reps)
+    for name, c in counts.items():
+        total[name] += c
+    reset_counts()
+    t = time.perf_counter()
+    u3 = dryrun_multichip(4, device=device.type)
+    counts = launched(launch_counts())
+    u3["seconds"] = time.perf_counter() - t
+    say(f"(u3) dryrun_multichip(4): toy and production passes oracle-exact "
+        f"on {u3['meshes']} over {u3['devices']}; launches {counts}")
+    for name, c in counts.items():
+        total[name] += c
+    for name in ("heavy_fused3", "gather_rows_bf16", "gather_rows", "mix_lists"):
+        if total[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in (u)")
+    say(f"[{card}] phase (u) sharded: {time.perf_counter() - t0:.1f}s")
+    return total, dict(u1=u1, u2=u2, u3=u3)
+
+
 def probe_paths(device, shape: dict):
     """benchmarks/kernel_probe.py (P1-P5) and a short
     benchmarks/probe_fusedmm.py run (K6, P6), each counted from zero."""
@@ -1827,10 +2155,12 @@ def probe_paths(device, shape: dict):
 
 def server_phase(device):
     """The port's Engine and HTTP front over a small on-disk index, in
-    sparse mode and in the server's default mode."""
+    sparse mode, in the server's default mode and (u4) in sparse mode over
+    --mesh 1,1 (a ShardedIndex)."""
     import numpy as np
 
-    from nextsearch_tpu_torch.api.server import serving_config
+    from nextsearch_tpu_torch.api.server import serving_config, serving_mesh
+    from nextsearch_tpu_torch.parallel.mesh import make_mesh
     from nextsearch_tpu_torch.config import DeviceConfig, EngineConfig
     from nextsearch_tpu_torch.index.builder import build_segment_arrays
     from nextsearch_tpu_torch.index.segmentio import save_manifest, write_segment
@@ -1857,34 +2187,43 @@ def server_phase(device):
             default = serving_config(os.environ.get("NEXTSEARCH_MODE"))
         if default.device.mode != "fused":
             raise AssertionError(f"server default mode {default.device.mode}")
+        sparse = EngineConfig(device=DeviceConfig(mode="sparse",
+                                                  dense_df_ratio=1 / 64))
+        # --mesh 1,1: the server's own mesh of the first CUDA device
+        mesh = (serving_mesh(1, 1) if device.type == "cuda"
+                else make_mesh(1, 1, devices=[device]))
         modes = (
-            ("sparse", EngineConfig(device=DeviceConfig(
-                mode="sparse", dense_df_ratio=1 / 64)),
-             (hk.heavy_fused3, hk.gather_rows_bf16)),
+            ("sparse", sparse, (hk.heavy_fused3, hk.gather_rows_bf16), None),
             ("default (fused)", replace(default, device=replace(
-                default.device, dense_df_ratio=1 / 64)), (hk.gather_rows,)),
+                default.device, dense_df_ratio=1 / 64)), (hk.gather_rows,),
+             None),
+            ("(u4) sparse --mesh 1,1", sparse,
+             (hk.heavy_fused3, hk.gather_rows_bf16), mesh),
         )
-        for label, cfg, kernels in modes:
-            _serve_and_check(Path(tmp), d, cfg, device, oseg, label, kernels)
+        for label, cfg, kernels, m in modes:
+            _serve_and_check(Path(tmp), d, cfg, device, oseg, label, kernels, m)
         # an embeddings file in the index directory: expansion, ?hybrid=1
         ranked = df_ranked_terms(seg)
         vecs = clustered_vectors(len(ranked))
         (d / "embeddings.vec").write_text("".join(
             f"{t} " + " ".join(f"{x:.6f}" for x in v) + "\n"
             for t, v in zip(ranked, vecs)), encoding="utf-8")
-        for label, cfg, kernels in modes:
+        for label, cfg, kernels, m in modes:
             _serve_and_check(Path(tmp), d, cfg, device, oseg,
-                             f"{label} with embeddings", kernels)
+                             f"{label} with embeddings", kernels, m)
 
 
-def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels):
-    """One Engine and HTTP server over the index: /api/search answers equal
-    the oracle's over the query's terms as the engine weights them (its own
-    expansion when an embeddings file was loaded); ?hybrid=1 answers the
-    plain search without embeddings, and with them the reference's hybrid
-    body with the docs and scores of HybridIndex.search_batch;
-    /api/suggest?q=w00 answers AutocompleteIndex.suggest_query's list; the
-    requests launched every kernel of `kernels`."""
+def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels,
+                     mesh=None):
+    """One Engine (over `mesh` if given) and HTTP server over the index:
+    /api/search answers equal the oracle's over the query's terms as the
+    engine weights them (its own expansion when an embeddings file was
+    loaded); ?hybrid=1 answers the plain search without embeddings, and
+    with them the reference's hybrid body with the docs and scores of
+    HybridIndex.search_batch (over a mesh in sparse mode through its
+    "hybrid_host" path); /api/suggest?q=w00 answers
+    AutocompleteIndex.suggest_query's list; the requests launched every
+    kernel of `kernels`."""
     import http.client
 
     import numpy as np
@@ -1898,9 +2237,11 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels):
 
     tmp = tmp / label.replace(" ", "_")  # its own search cache
     tmp.mkdir()
-    eng = Engine(index_dir, config=cfg, cache_dir=tmp, device=device)
+    eng = Engine(index_dir, config=cfg, cache_dir=tmp, device=device, mesh=mesh)
     if not eng.reload() or eng.index.n_dense == 0:
         raise AssertionError("server index: reload failed or no dense rows")
+    if (mesh is not None) != hasattr(eng.index, "mesh"):
+        raise AssertionError(f"server ({label}): index {type(eng.index)}")
     embeddings = (index_dir / "embeddings.vec").exists()
     if eng.sem.enabled != embeddings:
         raise AssertionError(f"server ({label}): semantic index "
@@ -1944,8 +2285,11 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels):
                 if hyb["results"] != body["results"] or "hybrid" in hyb:
                     raise AssertionError(f"?hybrid=1 {terms} != plain search")
                 continue
-            want = eng._hybrid_index().search_batch(
-                [weighted], k=K, candidates=cfg.hybrid.candidates)[0]
+            hy = eng._hybrid_index()
+            h = hy.search_batch_async([weighted], K, cfg.hybrid.candidates)
+            if mesh is not None and h[0] != "hybrid_host":
+                raise AssertionError(f"?hybrid=1 over a mesh: handle {h[0]}")
+            want = hy.search_batch_gather(h)[0]
             if hyb.get("hybrid") is not True or [x["docId"] for x in hyb["results"]] != [
                     eng.index.doc_info(int(s))[2] for s in want.doc_slots] or not np.allclose(
                     [x["hybrid_score"] for x in hyb["results"]], want.scores,
@@ -2001,13 +2345,18 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
     kern.update(check_probe_kernels(device, reps, shape))
     ph.done("kernels")
     oseg = seg.to_oracle_segment()
-    launches = main_path(ti, [oseg], batches, device, loop_secs, card)
+    launches, loops = main_path(ti, [oseg], batches, device, loop_secs, card)
     ph.done("main path")
     counts, models, sem = models_phase(ti, seg, [oseg], batches, device,
                                        loop_secs, card, reps)
     for name, c in counts.items():
         launches[name] += c
     ph.done("models (p)-(t)")
+    counts, sharded = sharded_phase(ti, seg, oseg, batches, device, loop_secs,
+                                    card, loops["default"]["qps"], reps)
+    for name, c in counts.items():
+        launches[name] += c
+    ph.done("sharded (u)")
     del ti
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -2038,11 +2387,18 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
     say(f"bf16 rows: {json.dumps(bf16)}")
     say(f"fused: {json.dumps(fused)}")
     say(f"models: {json.dumps(models)}")
+    say(f"sharded: {json.dumps(sharded)}")
     say(f"total {time.perf_counter() - ph.t0:.1f}s on {card}")
     kern["heavy_fused3"].update(prefixed(
         "bf16_rows_exact_", kern.pop("heavy_fused3_bf16_rows")))
     kern["heavy_fused3"].update(prefixed(
         "dense_", kern.pop("heavy_fused3_dense")))
+    lq = models["long_questions"]
+    kern["heavy_fused3"].update(
+        dense_long_ms=lq["k1_ms"], dense_long_plain_ms=lq["k1_plain_ms"],
+        dense_long_library_ms=lq["k1_library_ms"],
+        dense_long_bound_ms=lq["k1_bound_ms"],
+        dense_long_max_abs_err=lq["k1_max_abs_err"])
     line = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                  launches=launches[name], **kern[name]) for name in KERNELS]
     for entry in line:

@@ -24,11 +24,12 @@ by api/batching.SearchBatcher instead of serializing behind a mutex.
 
 The port's copy of nextsearch_tpu/api/server.py: ServerContext, ApiHandler
 and make_server are the JAX package's, over the port's Engine. main
-drops the jax platform, mesh and compile-cache lines; it takes the device
-mode as the JAX package's does (fused by default), and a CUDA device is
-required.
+drops the jax platform and compile-cache lines; it takes the device mode
+(fused by default) and --mesh dp,seg (a ShardedIndex over the first dp*seg
+CUDA devices) as the JAX package's does, and a CUDA device is required.
 
     python -m nextsearch_tpu_torch.api.server <INDEX_DIR> [port] [--mode M]
+        [--mesh dp,seg]
 """
 
 from __future__ import annotations
@@ -487,7 +488,7 @@ def make_server(ctx: ServerContext, host: str = "0.0.0.0", port: int = 8080):
 
 USAGE = (
     "Usage: python -m nextsearch_tpu_torch.api.server <INDEX_DIR> [port] "
-    "[--mode fused|sparse|exact|fast]\n"
+    "[--mesh dp,seg] [--mode fused|sparse|exact|fast]\n"
     "Example: python -m nextsearch_tpu_torch.api.server ./index 8080"
 )
 
@@ -560,8 +561,34 @@ def serving_config(mode: Optional[str] = None) -> EngineConfig:
     return _env_config(config)
 
 
+def serving_mesh(dp: int, seg: int):
+    """The (dp, seg) mesh that --mesh dp,seg serves over: the first dp*seg
+    CUDA devices. Raises ValueError when there are fewer."""
+    from ..parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if dp < 1 or seg < 1 or dp * seg > n:
+        raise ValueError(f"--mesh {dp},{seg} needs {dp * seg} CUDA devices "
+                         f"({n} present)")
+    return make_mesh(dp=dp, seg=seg, devices=[
+        torch.device(f"cuda:{i}") for i in range(dp * seg)])
+
+
 def main(argv=None):
     argv = list(argv) if argv is not None else sys.argv[1:]
+    # --mesh dp,seg: serve from a ShardedIndex over a (dp, seg) mesh of the
+    # first dp*seg CUDA devices (segments shard over seg, query batches over
+    # dp). Without it the engine runs on one device.
+    mesh_shape = None
+    if "--mesh" in argv:
+        i = argv.index("--mesh")
+        try:
+            dp_s, seg_s = argv[i + 1].split(",")
+            mesh_shape = (int(dp_s), int(seg_s))
+        except (IndexError, ValueError):
+            print("--mesh expects 'dp,seg' (e.g. --mesh 2,4)", file=sys.stderr)
+            return 1
+        del argv[i: i + 2]
     # --mode: device execution mode (config.DeviceConfig.mode). "sparse" is
     # the scatter-free path tuned for 1M+-doc corpora; "fused" is the
     # default. Also honored: the NEXTSEARCH_MODE env var.
@@ -578,9 +605,6 @@ def main(argv=None):
         print(f"unknown --mode '{mode}' (fused|sparse|exact|fast)",
               file=sys.stderr)
         return 1
-    if "--mesh" in argv:
-        print("--mesh is not ported (single device only)", file=sys.stderr)
-        return 1
     if not argv:
         print(USAGE, file=sys.stderr)
         return 1
@@ -589,8 +613,18 @@ def main(argv=None):
     index_dir = Path(argv[0])
     port = int(argv[1]) if len(argv) > 1 else 8080
 
+    mesh = None
+    if mesh_shape is not None:
+        try:
+            mesh = serving_mesh(*mesh_shape)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        log("server", f"serving over mesh (dp={mesh_shape[0]}, "
+            f"seg={mesh_shape[1]}): {mesh}")
+
     config = serving_config(mode)
-    engine = Engine(index_dir, config=config, device="cuda")
+    engine = Engine(index_dir, config=config, device="cuda", mesh=mesh)
     t0 = time.perf_counter()
     if not engine.reload():
         log("server", f"Failed to load index segments from: {index_dir}",

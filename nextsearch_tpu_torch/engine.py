@@ -1,15 +1,16 @@
-"""Engine: index lifecycle + query orchestration over a TorchIndex.
+"""Engine: index lifecycle + query orchestration over a TorchIndex, or a
+ShardedIndex over a (dp, seg) mesh.
 
 The port's copy of nextsearch_tpu/engine.py (which mirrors
 src/api_engine.cpp: reload with the autocomplete table, the metadata map
 and the optional semantic embeddings; cached batched search with semantic
 expansion; the hybrid dense rerank; JSON rendering; warmup's shape
-pinning), building the port's TorchIndex, AutocompleteIndex and
-SemanticIndex on an explicit device.
+pinning), building the port's TorchIndex (or, given a mesh,
+parallel.sharded.ShardedIndex), AutocompleteIndex and SemanticIndex on an
+explicit device.
 
-Not ported yet: serving over a mesh (ROADMAP queue 1 item 11) and the
-device trace behind NEXTSEARCH_PROFILE_DIR (item 4b); both raise at
-construction.
+Not ported yet: the device trace behind NEXTSEARCH_PROFILE_DIR (ROADMAP
+queue 1 item 4b); it raises at construction.
 """
 
 from __future__ import annotations
@@ -54,20 +55,23 @@ class Engine:
         config: EngineConfig = DEFAULT_CONFIG,
         cache_dir: str | os.PathLike = ".",
         *,
-        device,
+        device=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving over a mesh is not ported: ROADMAP queue 1 "
-                "item 11"
-            )
+        """device: where the index (without a mesh), the autocomplete table
+        and the semantic index live; with a mesh it defaults to the mesh's
+        first device, where the sharded index's results land."""
+        if device is None:
+            if mesh is None:
+                raise TypeError("Engine needs a device or a mesh")
+            device = mesh.devices[0][0]
         if os.environ.get("NEXTSEARCH_PROFILE_DIR"):
             raise NotImplementedError(
                 "NEXTSEARCH_PROFILE_DIR (jax device trace) has no torch "
                 "counterpart yet: ROADMAP queue 1 item 4"
             )
         self.device = torch.device(device)
+        self.mesh = mesh
         self.index_dir = Path(index_dir)
         self.config = config
         self.mtx = threading.RLock()
@@ -77,7 +81,7 @@ class Engine:
         self._reload_mtx = threading.Lock()
 
         self.seg_names: List[str] = []
-        self.index: Optional[TorchIndex] = None
+        self.index = None  # TorchIndex | ShardedIndex
         self.ac = AutocompleteIndex(device=self.device)
         self.sem = SemanticIndex(device=self.device)
         self.metadata: Optional[MetadataStore] = None
@@ -133,9 +137,16 @@ class Engine:
                     log("reload", f"Failed to load segment: {segdir} ({e})",
                         level="error")
                     return False
-            new_index = TorchIndex(
-                loaded, seg_names, self.config, device=self.device
-            )
+            if self.mesh is not None:
+                from .parallel.sharded import ShardedIndex
+
+                new_index = ShardedIndex(
+                    loaded, self.mesh, seg_names, self.config
+                )
+            else:
+                new_index = TorchIndex(
+                    loaded, seg_names, self.config, device=self.device
+                )
 
             # Autocomplete: df summed across segment lexicons (:92-108).
             term_to_score: Dict[str, int] = {}
@@ -185,6 +196,8 @@ class Engine:
         in search_batch_async always matches its index snapshot."""
         if not self.config.native_render or index is None:
             return None
+        if not hasattr(index, "doc_bases"):
+            return None  # the sharded backend renders host-side
         from . import native as native_mod
 
         if not native_mod.available():

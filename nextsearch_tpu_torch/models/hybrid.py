@@ -1,5 +1,6 @@
 """Hybrid retrieval: BM25 candidate generation + dense rerank on the device.
-The port of nextsearch_tpu/models/hybrid.py over a TorchIndex.
+The port of nextsearch_tpu/models/hybrid.py over a TorchIndex or a
+ShardedIndex.
 
 BASELINE config 5 ("BM25 candidates + semantic_embedding dense rerank").
 The reference has no document embeddings; they are derived at build time as
@@ -11,7 +12,8 @@ terms.
 Final score: beta * bm25/max_bm25(query) + (1-beta) * max(cos, 0), reranked
 on the device (ops/dense.hybrid_rerank) straight from the BM25 launch's
 device tensors (_HostCopy.device_outs): nothing round-trips through the
-host between the two.
+host between the two. A sharded sparse index's handles are gathered on the
+host first and then reranked ("hybrid_host"), as in the reference.
 
 The device build adds the doc vectors with index_add_, whose adds land in
 any order on a card (atomics), so two builds may differ in the last bits;
@@ -132,9 +134,11 @@ class HybridIndex:
         TorchIndex.search_batch_async. Which tensors a handle holds depends
         on the index's mode, so the dispatch goes by index._sparse and the
         handle's tag: fused "packed" and exact/fast "pending" carry the
-        whole batch; sparse "packed"/"packedg" carry the launched rows
-        (permuted by perm, with host-shortcut answers in fills, and under
-        fast mode the guard column) and sparse "fills" no launch at all."""
+        whole batch; a single-device sparse index's "packed"/"packedg"
+        carry the launched rows (permuted by perm, with host-shortcut
+        answers in fills, and under fast mode the guard column) and its
+        "fills" no launch at all. A sharded sparse index's handles (no
+        doc_bases) are gathered on the host, then reranked."""
         nq = len(queries)
         if nq == 0 or self.index.n_docs == 0:
             return ("hybrid_trivial", nq)
@@ -148,6 +152,8 @@ class HybridIndex:
         guard = None
         fills = None
         bm_queries = queries
+        # a single-device sparse index: its handles chain on the device
+        sparse_direct = self.index._sparse and hasattr(self.index, "doc_bases")
         if tag == "pending":  # exact and fast modes: three tensors
             _tag, _nq, _k, K, pending = handle
             vals, idx, found = pending.device_outs
@@ -155,7 +161,7 @@ class HybridIndex:
             # fused mode's packed result, ids as exact f32 values
             _tag, _nq, _k, K, pending = handle[:5]
             vals, idx, found = _unpack(pending.device_outs[0], K)
-        elif self.index._sparse and tag == "fills":
+        elif sparse_direct and tag == "fills":
             # whole batch answered host-side: rerank the fill candidates
             # in one launch (no BM25 launch happened)
             _tag, _nq, _k, fills_all = handle
@@ -163,7 +169,7 @@ class HybridIndex:
             vals, idx, found = (
                 _upload(a, self.device)
                 for a in self._fill_arrays(fills_all, nq, C, None))
-        elif self.index._sparse and tag in ("packed", "packedg"):
+        elif sparse_direct and tag in ("packed", "packedg"):
             if tag == "packedg":
                 _tag, _nq, _k, K, pending, _relaunch, perm, _q, fills = handle
             else:
@@ -202,7 +208,9 @@ class HybridIndex:
                     mask_d[:, 0], _upload(f_found, self.device), found
                 )
         else:
-            raise ValueError(f"hybrid rerank: unknown handle kind {tag!r}")
+            # sharded sparse handles are gathered host-side first
+            q_emb = np.stack([self.query_embedding(q) for q in queries])
+            return ("hybrid_host", nq, k, C, handle, q_emb)
 
         q_emb = np.stack([self.query_embedding(q) for q in bm_queries])
         Qb = vals.shape[0]
@@ -245,6 +253,24 @@ class HybridIndex:
             ] * handle[1]
         if handle[0] == "hybrid_passthrough":
             return self.index.search_batch_gather(handle[1])
+        if handle[0] == "hybrid_host":
+            _tag, nq, k, C, bm_handle, q_emb = handle
+            base = self.index.search_batch_gather(bm_handle)
+            vals_h = np.zeros((nq, C), np.float32)
+            idx_h = np.zeros((nq, C), np.int32)
+            found_h = np.array([r.found for r in base], np.int32)
+            for qi, r in enumerate(base):
+                n = min(len(r.scores), C)
+                vals_h[qi, :n] = r.scores[:n]
+                idx_h[qi, :n] = r.doc_slots[:n]
+            hvals, hdocs, hbm25 = hybrid_rerank(
+                self.doc_emb, _upload(q_emb, self.device),
+                _upload(idx_h, self.device), _upload(vals_h, self.device),
+                self.beta, K=min(k, C),
+            )
+            handle = ("hybrid", nq, k, _HostCopy(
+                hvals, hdocs, hbm25, _upload(found_h, self.device)),
+                None, None, C)
         _tag, nq, k, pending, perm, orig_queries, C = handle
         outs = pending.wait()
         hvals, hdocs, hbm25, found = outs[:4]
@@ -281,7 +307,7 @@ class HybridIndex:
             return QueryResult(
                 np.empty(0, np.float32), np.empty(0, np.int32), int(found)
             )
-        bases = self.index.doc_bases
+        bases = self.index.segment_slot_bases()
         cand = np.asarray(
             [bases[seg] + doc for _s, seg, doc in hits], np.int32
         )

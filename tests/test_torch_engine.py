@@ -220,8 +220,18 @@ def test_hybrid_param_answers_the_reference_body(index_dir, tmp_path,
 
 
 def test_engine_rejects_mesh_and_other_modes(index_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        TorchEngine(index_dir, cache_dir=tmp_path, device="cpu", mesh=object())
+    """A mesh is no longer refused: it serves from a ShardedIndex (its
+    device defaults to the mesh's first); an Engine with neither a device
+    nor a mesh is."""
+    from nextsearch_tpu_torch.parallel import ShardedIndex, make_mesh
+
+    with pytest.raises(TypeError, match="device or a mesh"):
+        TorchEngine(index_dir, cache_dir=tmp_path)
+    mesh = make_mesh(1, 2, devices=[torch.device("cpu")] * 2)
+    eng = TorchEngine(index_dir, cache_dir=tmp_path, mesh=mesh)
+    assert eng.device == torch.device("cpu")
+    assert eng.reload() and isinstance(eng.index, ShardedIndex)
+    assert eng.search("covid", 5)["found"] > 0
     # every mode of the reference loads; an unknown one is refused
     eng = TorchEngine(index_dir, config=tconfig.EngineConfig(),
                       cache_dir=tmp_path, device="cpu")
@@ -234,14 +244,15 @@ def test_engine_rejects_mesh_and_other_modes(index_dir, tmp_path):
 
 def test_server_main_refuses_bad_arguments_with_usage(capsys):
     """The server's main refuses an unknown --mode (naming the four it
-    takes), a --mode without a value, --mesh, and a missing index directory
-    (usage)."""
+    takes), a --mode without a value, a --mesh that is not dp,seg, and a
+    missing index directory (usage)."""
     from nextsearch_tpu_torch.api.server import main
 
     assert main(["--mode", "dense", "x"]) == 1
     assert "fused|sparse|exact|fast" in capsys.readouterr().err
     assert main(["--mode"]) == 1
-    assert main(["--mesh", "1,1", "x"]) == 1
+    assert main(["--mesh", "1x1", "x"]) == 1
+    assert "dp,seg" in capsys.readouterr().err
     assert main([]) == 1
     assert "Usage" in capsys.readouterr().err
 
@@ -266,8 +277,12 @@ from nextsearch_tpu_torch.tools.synthetic import build_corpus, sample_queries
 names = [m.name for m in pkgutil.walk_packages(nextsearch_tpu_torch.__path__,
                                                "nextsearch_tpu_torch.")]
 assert {"nextsearch_tpu_torch.benchmarks.kernel_probe",
+        "nextsearch_tpu_torch.benchmarks.sharded_overhead",
         "nextsearch_tpu_torch.index.planner",
         "nextsearch_tpu_torch.api.server",
+        "nextsearch_tpu_torch.parallel.mesh",
+        "nextsearch_tpu_torch.parallel.sharded",
+        "nextsearch_tpu_torch.parallel.dryrun",
         "nextsearch_tpu_torch.native"} <= set(names), names
 for name in names:
     importlib.import_module(name)
@@ -281,6 +296,12 @@ ti = TorchIndex([seg], config=cfg, device="cpu")
 assert ti.n_dense > 0
 res = ti.search_batch(sample_queries(probs, 32, 32)[0], k=10)
 assert sum(r.found for r in res) > 0
+import torch
+from nextsearch_tpu_torch.parallel import ShardedIndex, make_mesh
+si = ShardedIndex([seg, seg], make_mesh(1, 2, devices=["cpu", "cpu"]),
+                  config=cfg)
+assert [r.found for r in si.search_batch(sample_queries(probs, 32, 32)[0],
+                                         k=10)] == [2 * r.found for r in res]
 
 d = Path(sys.argv[1]) / "index"
 (d / "segments").mkdir(parents=True)
