@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port's BM25 search paths (the sparse mode and the
-fused, exact and fast modes), its autocomplete, semantic expansion and hybrid
-rerank, its sharded backend, and its HTTP server on one CUDA card.
+fused, exact and fast modes), its build switches and 2-level selection sort,
+its autocomplete, semantic expansion and hybrid rerank, its sharded backend,
+and its HTTP server with its device trace and load generator on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -49,7 +51,7 @@ non-zero before the last line:
    unified launch (unified=True, K5) guarded fast, (e) unified exact, (f)
    unified with a forced trip (relaunching the packed full-table kernel),
    (g) the windowed selection kernel (NEXTSEARCH_SELECT_PALLAS=1, K4)
-   guarded fast, (h) K4 compact exact. Then 5 s pipelined loops at depth
+   guarded fast, (h) K4 compact exact. Then 3 s pipelined loops at depth
    2 on the default path, under unified and under K4.
    Then, on the same index (each path's launches counted from zero):
    (p) autocomplete over the bench lexicon (df summed): 512 prefixes of
@@ -81,8 +83,8 @@ non-zero before the last line:
    of more than 8 queries (the full-table K1 relaunch), each spot-checked
    against the oracle and equal to the TorchIndex's results for the batch
    (scores bit for bit, (segment, doc), found); its device ms per batch
-   (profile_paths.py's trace); a 5 s depth-2 loop beside the main path's
-   default loop, then 3 s loops in turns (TorchIndex, sharded, sharded,
+   (profile_paths.py's trace); a 3 s depth-2 loop beside the main path's
+   default loop, then 2 s loops in turns (TorchIndex, sharded, sharded,
    TorchIndex). (u2) a (1,4) mesh with all four shards on the card, over
    the bench corpus cut by doc range into four 250k-doc segments (each with
    its own N, avgdl and scores): n_dense per shard, index bytes and peak
@@ -92,6 +94,21 @@ non-zero before the last line:
    bench.py's fused configuration (K3 once per shard). (u3)
    dryrun_multichip(4): the toy and the production passes on (2,2) and
    (1,4), oracle-exact.
+   (v) the build switches, each index built once over the same corpus and
+   configuration and held to the main index: (v1)
+   NEXTSEARCH_LIGHT_BUILD=device and NEXTSEARCH_ROW_TOPK_BUILD=device: the
+   light table and the search depth bit-equal, the row top-k's values
+   bit-equal on every row whose df >= k (slots equal above each row's last
+   value: the host path cuts a tie run that crosses lane k at any of its
+   members), a guarded fast launch (K2 + K1) oracle-exact and bit-equal to
+   the main index's, 64 one-term head queries answered by the row top-k
+   shortcut with no launch, oracle-exact; (v2) NEXTSEARCH_DEVICE_BUILD=0:
+   the host-built dense rows bit-equal to the device build, a guarded fast
+   launch as (v1)'s; each path's build seconds beside the default's, and
+   (v2)'s host memory. (w) NEXTSEARCH_SORT2_2LEVEL=1 on the main index: the
+   guarded fast launch takes the 2-level branch (its counter), its packed
+   output equals the one-level launch's bit for bit and is oracle-exact;
+   device ms per batch both ways and 2 s loops in turns.
 5. bf16 rows: the f32 index is freed and a TorchIndex with
    dense_rows_bf16 is built over the same corpus and configuration; (i)
    the compact launch (K3 over bf16 rows, K1 exact), (j) the full-table
@@ -104,14 +121,14 @@ non-zero before the last line:
    config.py's dense_rows_bf16 note), and then only inside the band that
    bf16 rows' rounding allows (see bf16_gate); such exempt queries are
    counted.
-   Then a 5 s loop at depth 2.
+   Then a 3 s loop at depth 2.
 6. fused, exact, fast: the bf16 index is freed and a fused-mode TorchIndex
    (the library default) is built over the same corpus at bench.py's fused
    configuration (dense ratio 1/256, 2 GiB of rows, block 64, K2 32). K3
    on this path's operands (the batch's unique heavy rows, padded to the
    pinned U) against its plain version and index_select; (m) one batch-512
    launch spot-checked bit-exact against the oracle, with K3 launched once
-   and no other kernel; a 5 s loop at depth 2 (QPS, p50, stream span per
+   and no other kernel; a 3 s loop at depth 2 (QPS, p50, stream span per
    batch, peak memory; K3 once per batch); (n) one batch of 64 in exact
    mode, bit-exact and run twice for the same bits, and (o) one in fast
    mode (found equal, scores within 1e-5, docs equal outside near-ties),
@@ -124,7 +141,11 @@ non-zero before the last line:
    starts in with no NEXTSEARCH_MODE, the library default (fused; answers
    run K3); /api/search answers must match the oracle, ?hybrid=1
    (there is no embeddings file) must answer the same, and
-   /api/suggest?q=w00 the autocomplete table's list. Then with an
+   /api/suggest?q=w00 the autocomplete table's list. The first sparse
+   serve runs its requests with NEXTSEARCH_PROFILE_DIR set: (x) the
+   torch.profiler traces under search/ must name K1's and K2's kernels;
+   then (y) benchmarks/load_http.py --mode batch loads it for 3 s
+   (--reuse-server), its spot-check oracle-exact. Then with an
    embeddings.vec in the index directory, in both modes: searches equal
    the oracle over the engine's expanded terms, ?hybrid=1 answers the
    reference's hybrid body with HybridIndex.search_batch's docs, cached
@@ -1828,7 +1849,7 @@ def models_phase(ti, seg, oracle_segs, batches, device, loop_secs, card, reps):
 # corpus
 
 U2_SHARDS = 4
-PAIR_SECS = 3.0  # each loop of (u1)'s TorchIndex/sharded pairs
+PAIR_SECS = 2.0  # each loop of (u1)'s TorchIndex/sharded pairs
 
 
 def doc_range_segments(seg, n: int):
@@ -2125,6 +2146,207 @@ def sharded_phase(ti, seg, oseg, batches, device, loop_secs, card, main_qps,
     return total, dict(u1=u1, u2=u2, u3=u3)
 
 
+def _host_mem() -> dict:
+    """The process's resident host memory (/proc/self/status VmRSS, where
+    there is one) and its peak since the process started (getrusage), GiB."""
+    import resource
+
+    out = {"peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)}
+    try:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                out["rss"] = int(line.split()[1]) / (1 << 20)
+    except OSError:
+        pass
+    return out
+
+
+def _same_results(got, want, label):
+    import numpy as np
+
+    for qi, (a, b) in enumerate(zip(got, want)):
+        if a.found != b.found or not np.array_equal(
+                np.asarray(a.scores, np.float32).view(np.uint32),
+                np.asarray(b.scores, np.float32).view(np.uint32)) or \
+                not np.array_equal(a.doc_slots, b.doc_slots):
+            raise AssertionError(f"{label}: query {qi} differs from the main index")
+
+
+def _guarded_launch(index, ti, oracle_segs, batch, memo, label):
+    """One guarded fast launch (K2 + K1) of `batch` on `index`: oracle-exact
+    on SPOT queries and bit-equal to the main index `ti`'s results."""
+    reset_counts()
+    res = index.search_batch(batch, k=K)
+    counts = launched(launch_counts())
+    expect = [with_lists({"heavy_fused3": 1, "gather_rows_bf16": 1}),
+              with_lists({"heavy_fused3": 2, "gather_rows_bf16": 1})]
+    if counts not in expect:
+        raise AssertionError(f"{label}: launches {counts} not in {expect}")
+    spot_check(index, oracle_segs, batch[:SPOT], res[:SPOT], memo)
+    _same_results(res, ti.search_batch(batch, k=K), label)
+    say(f"{label}: guarded fast launch oracle-exact ({SPOT} queries) and "
+        f"bit-equal to the main index ({len(batch)} queries); launches {counts}")
+    return counts
+
+
+def build_paths_phase(ti, seg, oracle_segs, batches, device, card):
+    """(v1) a TorchIndex whose light table and row top-k are built on the
+    card (NEXTSEARCH_LIGHT_BUILD=device, NEXTSEARCH_ROW_TOPK_BUILD=device)
+    and (v2) one whose dense rows are built on the host and uploaded once
+    (NEXTSEARCH_DEVICE_BUILD=0), each held to the main index `ti` (host
+    light table and row top-k, device dense rows). Returns the launch
+    counts and the build seconds of each path."""
+    import numpy as np
+    import torch
+
+    from nextsearch_tpu_torch.index.segment import TorchIndex
+
+    total = dict.fromkeys(KERNELS, 0)
+    memo: dict = {}
+    out: dict = {}
+    base = ti.build_phases
+    with mock.patch.dict(os.environ, NEXTSEARCH_LIGHT_BUILD="device",
+                         NEXTSEARCH_ROW_TOPK_BUILD="device"):
+        t0 = time.perf_counter()
+        t1 = TorchIndex([seg], config=ti.config, device=device)
+        build_s = time.perf_counter() - t0
+    if not torch.equal(t1.light_bucket_pos, ti.light_bucket_pos):
+        raise AssertionError("(v1) device light table != host light table")
+    if t1._bs_depth != ti._bs_depth:
+        raise AssertionError(f"(v1) bs_depth {t1._bs_depth} != {ti._bs_depth}")
+    (v, s), (hv, hs) = t1._row_topk, ti._row_topk
+    full = (hs < 2**30).all(axis=1)  # rows whose df >= k
+    if not np.array_equal(v[full].view(np.uint32), hv[full].view(np.uint32)):
+        raise AssertionError("(v1) device row top-k values != host values")
+    # slots: equal above each row's last value; a tie run that crosses lane
+    # k is cut by the host path's argpartition at any of its members
+    above = hv[full] > hv[full][:, -1:]
+    if not np.array_equal(s[full][above], hs[full][above]):
+        raise AssertionError("(v1) device row top-k slots != host slots")
+    differ = (s[full] != hs[full])
+    same_rows = int((~differ).all(axis=1).sum())
+    first_lane = int(differ.argmax(axis=1)[differ.any(axis=1)].min(initial=v.shape[1]))
+    say(f"(v1) light table bit-equal ({tuple(t1.light_bucket_pos.shape)}, "
+        f"bs_depth {t1._bs_depth}); row top-k {v.shape}: {int(full.sum())} of "
+        f"{v.shape[0]} rows have df >= k, values bit-equal, slots equal above "
+        f"each row's last value, {same_rows} rows slot-equal throughout; "
+        f"the first differing lane of any row is {first_lane}")
+    for name, c in _guarded_launch(t1, ti, oracle_segs, batches[0], memo,
+                                   "(v1)").items():
+        total[name] += c
+    row_term = {r: t for t, (_s, _d, r) in ti.lex[0].items() if 0 <= r < 64}
+    head = [[(row_term[r], 1.0)] for r in sorted(row_term)]
+    reset_counts()
+    res = t1.search_batch(head, k=K)
+    if launched(launch_counts()):
+        raise AssertionError(f"(v1) head queries launched {launch_counts()}")
+    spot_check(t1, oracle_segs, head, res, memo)
+    out["v1"] = dict(
+        light_device_s=t1.build_phases.get("light_device_build"),
+        light_host_s=base.get("light_rows"),
+        row_topk_device_s=t1.build_phases.get("row_topk"),
+        row_topk_host_s=base.get("row_topk"), index_s=build_s)
+    say(f"(v1) {len(head)} one-term head queries answered by the row top-k "
+        f"shortcut, no launch, oracle-exact; [{card}] build seconds: light "
+        f"table device {out['v1']['light_device_s']:.2f} (light rows "
+        f"{t1.build_phases.get('light_rows', 0):.2f}) vs host "
+        f"{out['v1']['light_host_s']:.2f}, row top-k device "
+        f"{out['v1']['row_topk_device_s']:.2f} vs host "
+        f"{out['v1']['row_topk_host_s']:.2f}, whole index {build_s:.1f}")
+    del t1
+    torch.cuda.empty_cache() if device.type == "cuda" else None
+
+    mem0 = _host_mem()
+    with mock.patch.dict(os.environ, NEXTSEARCH_DEVICE_BUILD="0"):
+        t0 = time.perf_counter()
+        t2 = TorchIndex([seg], config=ti.config, device=device)
+        build_s = time.perf_counter() - t0
+    mem1 = _host_mem()
+    if t2._device_build or not torch.equal(t2.dense_rows.view(torch.int32),
+                                           ti.dense_rows.view(torch.int32)):
+        raise AssertionError("(v2) host-built dense rows != device-built rows")
+    if t2._bs_depth != ti._bs_depth:
+        raise AssertionError(f"(v2) bs_depth {t2._bs_depth} != {ti._bs_depth}")
+    for name, c in _guarded_launch(t2, ti, oracle_segs, batches[0], memo,
+                                   "(v2)").items():
+        total[name] += c
+    table_gib = t2.dense_rows.numel() * t2.dense_rows.element_size() / (1 << 30)
+    out["v2"] = dict(
+        host_build_upload_s=t2.build_phases.get("host_tables_upload"),
+        device_build_s=base.get("heavy_device_build"), index_s=build_s,
+        table_gib=table_gib, rss_before_gib=mem0.get("rss"),
+        rss_after_gib=mem1.get("rss"), peak_before_gib=mem0["peak"],
+        peak_after_gib=mem1["peak"])
+    say(f"(v2) dense rows {tuple(t2.dense_rows.shape)} ({table_gib:.2f} GiB) "
+        f"bit-equal to the device build; [{card}] host build + upload "
+        f"{out['v2']['host_build_upload_s']:.2f} s vs device build "
+        f"{out['v2']['device_build_s']:.2f} s (whole index {build_s:.1f} s); "
+        f"host memory: resident {mem0.get('rss', 0):.2f} GiB before, "
+        f"{mem1.get('rss', 0):.2f} after; the process's peak "
+        f"{mem0['peak']:.2f} GiB before, {mem1['peak']:.2f} after")
+    del t2
+    torch.cuda.empty_cache() if device.type == "cuda" else None
+    return total, out
+
+
+def sort2_phase(ti, oracle_segs, batches, device, card):
+    """(w) the 2-level selection sort (NEXTSEARCH_SORT2_2LEVEL=1) on the main
+    index: the guarded fast launch takes the 2-level branch (its counter),
+    its packed output equals the one-level launch's bit for bit and is
+    oracle-exact; device ms per batch (profile_paths.py's trace) both ways,
+    and loops of PAIR_SECS in turns (one-level, 2-level, 2-level,
+    one-level)."""
+    import numpy as np
+
+    from nextsearch_tpu_torch.ops import bm25_sparse as bs
+
+    memo: dict = {}
+    total = dict.fromkeys(KERNELS, 0)
+    packed = {}
+    out = {}
+    # the light stream's lanes: the batch envelope's pinned chunk budget C
+    # times the posting block (the 2-level guard wants >= 32768, % 128)
+    n_flat = (ti._pin("C", BATCH) or 0) * ti.config.device.posting_block
+    for level in ("1", "2"):
+        with mock.patch.dict(os.environ, NEXTSEARCH_SORT2_2LEVEL=
+                             "1" if level == "2" else "0",
+                             NEXTSEARCH_TRIP_RESCUE="8"):
+            c0 = bs.topk_quantized_reduce.calls
+            reset_counts()
+            h = ti.search_batch_async(batches[0], k=K)
+            packed[level] = h[4].wait()[0].copy()  # before any host rescue
+            res = ti.search_batch_gather(h)
+            for name, c in launch_counts().items():
+                total[name] += c
+            took = bs.topk_quantized_reduce.calls - c0
+            if took != (1 if level == "2" else 0):
+                raise AssertionError(
+                    f"(w) {level}-level: 2-level branch taken {took} times "
+                    f"(flat stream {n_flat} lanes)")
+            spot_check(ti, oracle_segs, batches[0][:SPOT], res[:SPOT], memo)
+            out[f"level{level}"] = dict(
+                device_ms_per_batch=traced_ms(ti, batches, device), qps=[])
+    # loops in turns (one-level, 2-level, 2-level, one-level)
+    for level in ("1", "2", "2", "1"):
+        with mock.patch.dict(os.environ, NEXTSEARCH_SORT2_2LEVEL=
+                             "1" if level == "2" else "0"):
+            counts, loop = serving_loop(ti, batches, device, PAIR_SECS,
+                                        f"(w) sort2 {level}-level", card)
+        for name, c in counts.items():
+            total[name] += c
+        out[f"level{level}"]["qps"].append(loop["qps"])
+    if not np.array_equal(packed["1"].view(np.uint32), packed["2"].view(np.uint32)):
+        raise AssertionError("(w) 2-level packed output != one-level output")
+    out["flat_lanes"] = n_flat
+    say(f"(w) 2-level sort2 taken on a flat stream of {n_flat} lanes; packed "
+        f"output {packed['2'].shape} bit-equal to the one-level launch, "
+        f"oracle-exact; [{card}] device ms per batch one-level "
+        f"{out['level1']['device_ms_per_batch']} vs 2-level "
+        f"{out['level2']['device_ms_per_batch']}; loop qps in turns "
+        f"one-level {out['level1']['qps']} vs 2-level {out['level2']['qps']}")
+    return total, out
+
+
 def probe_paths(device, shape: dict):
     """benchmarks/kernel_probe.py (P1-P5) and a short
     benchmarks/probe_fusedmm.py run (K6, P6), each counted from zero."""
@@ -2201,7 +2423,9 @@ def server_phase(device):
              (hk.heavy_fused3, hk.gather_rows_bf16), mesh),
         )
         for label, cfg, kernels, m in modes:
-            _serve_and_check(Path(tmp), d, cfg, device, oseg, label, kernels, m)
+            # (x) and (y) ride on the first sparse serve
+            _serve_and_check(Path(tmp), d, cfg, device, oseg, label, kernels, m,
+                             trace_and_load=label == "sparse")
         # an embeddings file in the index directory: expansion, ?hybrid=1
         ranked = df_ranked_terms(seg)
         vecs = clustered_vectors(len(ranked))
@@ -2213,8 +2437,65 @@ def server_phase(device):
                              f"{label} with embeddings", kernels, m)
 
 
+# K1's and K2's CUDA kernels, by the names a trace gives them
+TRACE_KERNELS = {"heavy_fused3": ("heavy_gather_kernel", "heavy_dense_tc_kernel",
+                                  "heavy_dense_exact_kernel"),
+                 "gather_rows_bf16": ("gather_rows_kernel",)}
+
+
+def trace_check(prof: Path, card: str, cuda: bool = True) -> dict:
+    """(x): the traces NEXTSEARCH_PROFILE_DIR left under search/, read with
+    profile_paths.py's reader: their kernel events must name K1's and K2's
+    kernels (on a card; a CPU rehearsal's traces have no kernel events)."""
+    import profile_paths
+
+    files = sorted((prof / "search").glob("*.json"))
+    if not files:
+        raise AssertionError(f"(x) no trace under {prof / 'search'}")
+    names = set()
+    for f in files:
+        names.update(e[2] for e in profile_paths.device_events(
+            json.loads(f.read_text())) if e[3] == "kernel")
+    found = {k: {p: sum(p in n for n in names) for p in pats
+                 if any(p in n for n in names)}
+             for k, pats in TRACE_KERNELS.items()}
+    if cuda and not all(found.values()):
+        raise AssertionError(f"(x) traces name no kernel of "
+                             f"{[k for k, v in found.items() if not v]}; "
+                             f"kernels seen: {sorted(names)[:20]}")
+    say(f"(x) [{card}] {len(files)} traces under search/, {len(names)} "
+        f"distinct kernels; K1's kernels (pattern: distinct names) "
+        f"{found['heavy_fused3']}, K2's {found['gather_rows_bf16']}")
+    return dict(traces=len(files), kernels=len(names))
+
+
+def load_http_check(port: int, index_dir: Path, card: str) -> dict:
+    """(y): benchmarks/load_http.py --mode batch for a few seconds against
+    the running server: its spot-check (oracle-exact answers) passes and it
+    prints its JSON line."""
+    cmd = [sys.executable, "-m", "nextsearch_tpu_torch.benchmarks.load_http",
+           "--reuse-server", "--port", str(port), "--index-dir",
+           str(index_dir), "--mode", "batch", "--secs", "3", "--batch", "64",
+           "--clients", "2", "--startup-timeout", "60"]
+    r = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True,
+                       timeout=600)
+    lines = [x for x in r.stdout.splitlines() if x.startswith("{")]
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"(y) load_http.py rc {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    want = {"metric", "value", "unit", "p50_req_ms", "clients", "batch",
+            "errors", "vs_baseline"}
+    if set(out) != want or out["metric"] != "served_qps_http_batch" or \
+            out["errors"] or "oracle-exact" not in r.stderr:
+        raise AssertionError(f"(y) load_http.py line {out}: {r.stderr[-500:]}")
+    say(f"(y) [{card}] load_http.py --mode batch (3 s, 2 clients, batch 64) "
+        f"over the server index, spot-check oracle-exact: {lines[-1]}")
+    return out
+
+
 def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels,
-                     mesh=None):
+                     mesh=None, trace_and_load=False):
     """One Engine (over `mesh` if given) and HTTP server over the index:
     /api/search answers equal the oracle's over the query's terms as the
     engine weights them (its own expansion when an embeddings file was
@@ -2223,7 +2504,8 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels,
     HybridIndex.search_batch (over a mesh in sparse mode through its
     "hybrid_host" path); /api/suggest?q=w00 answers
     AutocompleteIndex.suggest_query's list; the requests launched every
-    kernel of `kernels`."""
+    kernel of `kernels`. trace_and_load: the requests run with
+    NEXTSEARCH_PROFILE_DIR set (x), then load_http.py loads the server (y)."""
     import http.client
 
     import numpy as np
@@ -2266,6 +2548,9 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels,
 
         if not get("/api/health").get("ok"):
             raise AssertionError("/api/health not ok")
+        prof = tmp / "prof"
+        if trace_and_load:
+            os.environ["NEXTSEARCH_PROFILE_DIR"] = str(prof)
         c0 = [fn.launches for fn in kernels]
         queries = [["w0001", "w0150"], ["w0000", "w0003", "w0400"],
                    ["w0002", "w0250"], ["w0010", "w0020", "w0030"],
@@ -2303,6 +2588,11 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels,
         if not sugg or sugg != eng.ac.suggest_query("w00", 5):
             raise AssertionError(f"/api/suggest ({label}): {sugg}")
         c1 = [fn.launches for fn in kernels]
+        if trace_and_load:
+            os.environ.pop("NEXTSEARCH_PROFILE_DIR")
+            card = card_line() if device.type == "cuda" else "cpu"
+            trace_check(prof, card, device.type == "cuda")
+            load_http_check(srv.server_address[1], index_dir, card)
         if not all(b > a for a, b in zip(c0, c1)):
             raise AssertionError(
                 f"server ({label}) requests did not launch "
@@ -2314,6 +2604,7 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels,
             + ", ".join(f"{fn.__name__} +{b - a}"
                         for fn, a, b in zip(kernels, c0, c1)))
     finally:
+        os.environ.pop("NEXTSEARCH_PROFILE_DIR", None)
         srv.shutdown()
         srv.server_close()
         ctx.batcher.shutdown()
@@ -2322,7 +2613,7 @@ def _serve_and_check(tmp, index_dir, cfg, device, oseg, label, kernels,
 
 
 def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
-        loop_secs=5.0, reps=10, probe_shape=None):
+        loop_secs=3.0, reps=10, probe_shape=None):
     import torch
 
     from nextsearch_tpu_torch.ops import cuda_build
@@ -2357,6 +2648,14 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
     for name, c in counts.items():
         launches[name] += c
     ph.done("sharded (u)")
+    counts, builds = build_paths_phase(ti, seg, [oseg], batches, device, card)
+    for name, c in counts.items():
+        launches[name] += c
+    ph.done("build paths (v)")
+    counts, sort2 = sort2_phase(ti, [oseg], batches, device, card)
+    for name, c in counts.items():
+        launches[name] += c
+    ph.done("2-level sort2 (w)")
     del ti
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -2388,6 +2687,8 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
     say(f"fused: {json.dumps(fused)}")
     say(f"models: {json.dumps(models)}")
     say(f"sharded: {json.dumps(sharded)}")
+    say(f"build paths: {json.dumps(builds)}")
+    say(f"sort2: {json.dumps(sort2)}")
     say(f"total {time.perf_counter() - ph.t0:.1f}s on {card}")
     kern["heavy_fused3"].update(prefixed(
         "bf16_rows_exact_", kern.pop("heavy_fused3_bf16_rows")))

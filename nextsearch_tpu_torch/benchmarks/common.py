@@ -7,6 +7,7 @@ script that finds no card exits with an error instead of timing the CPU.
 
 from __future__ import annotations
 
+import json
 import os
 import statistics
 import subprocess
@@ -51,6 +52,73 @@ def event_ms(fn, reps: int = 10, *, warm: int = 1, inner: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+# trace event categories that are device time
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(trace: dict) -> list:
+    """(start_us, end_us, name, cat) of the trace's device events."""
+    return [
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e.get("name", ""),
+         e["cat"])
+        for e in trace.get("traceEvents", [])
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+    ]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e, *_ in sorted(events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def summarize(trace: dict, n_batches: int, top: int = 10) -> dict:
+    """Per-batch device time and kernel count, the span's idle share, and
+    the largest kernels of one trace."""
+    ev = device_events(trace)
+    kern = [e for e in ev if e[3] == "kernel"]
+    busy = busy_us(ev)
+    span = (max(e[1] for e in ev) - min(e[0] for e in ev)) if ev else 0.0
+    by_name: dict = {}
+    for s, e, name, _ in kern:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(
+        device_ms_per_batch=busy / 1e3 / n_batches,
+        kernel_sum_ms_per_batch=sum(e - s for s, e, *_ in kern) / 1e3 / n_batches,
+        kernels_per_batch=len(kern) / n_batches,
+        span_ms=span / 1e3,
+        idle_share=(1.0 - busy / span) if span else None,
+        top_kernels=[(name[:80], t / 1e3 / n_batches) for name, t in largest],
+    )
+
+
+def traced(fn, n_batches: int) -> dict:
+    """summarize() of a torch.profiler trace (CPU and CUDA activities) of
+    fn(), which runs n_batches batches; the card is synchronized before
+    and after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    return summarize(trace, n_batches)
 
 
 # An event pair should span about this much device work.

@@ -7,10 +7,12 @@ and the optional semantic embeddings; cached batched search with semantic
 expansion; the hybrid dense rerank; JSON rendering; warmup's shape
 pinning), building the port's TorchIndex (or, given a mesh,
 parallel.sharded.ShardedIndex), AutocompleteIndex and SemanticIndex on an
-explicit device.
-
-Not ported yet: the device trace behind NEXTSEARCH_PROFILE_DIR (ROADMAP
-queue 1 item 4b); it raises at construction.
+explicit device. NEXTSEARCH_PROFILE_DIR writes torch.profiler traces under
+<dir>/search/ (utils/profiling.py device_trace): one of each batch's device
+gather, at the reference's two sites, and one of its launch. The reference
+traces the gather only, where XLA's launch runs; here the launch enqueues
+the kernels, and a CUDA trace records only kernels launched while it is
+open, so the gather's trace alone names none.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from .models.autocomplete import AutocompleteIndex
 from .models.hybrid import HybridIndex
 from .models.semantic import SemanticIndex
 from .utils.logging import log
-from .utils.profiling import GLOBAL_TRACER
+from .utils.profiling import GLOBAL_TRACER, device_trace
 from .utils.textutil import filter_terms, tokenize
 
 
@@ -65,11 +67,6 @@ class Engine:
             if mesh is None:
                 raise TypeError("Engine needs a device or a mesh")
             device = mesh.devices[0][0]
-        if os.environ.get("NEXTSEARCH_PROFILE_DIR"):
-            raise NotImplementedError(
-                "NEXTSEARCH_PROFILE_DIR (jax device trace) has no torch "
-                "counterpart yet: ROADMAP queue 1 item 4"
-            )
         self.device = torch.device(device)
         self.mesh = mesh
         self.index_dir = Path(index_dir)
@@ -407,7 +404,7 @@ class Engine:
         kmax = 0
         if pending:
             kmax = max(p[2] for p in pending)
-            with GLOBAL_TRACER.span("search.launch"):
+            with GLOBAL_TRACER.span("search.launch"), device_trace("search"):
                 handle = index.search_batch_async(
                     [p[3] for p in pending], k=kmax
                 )
@@ -423,7 +420,7 @@ class Engine:
         (out, pending, handle, kmax, index, metadata, seg_count,
          renderer) = state
         if handle is not None and renderer is not None:
-            with GLOBAL_TRACER.span("search.device"):
+            with GLOBAL_TRACER.span("search.device"), device_trace("search"):
                 results = index.search_batch_gather(handle)
             with GLOBAL_TRACER.span("search.render"):
                 ks = np.empty(len(pending), np.int32)
@@ -451,7 +448,7 @@ class Engine:
                     out[i] = r
             return [x for x in out]  # type: ignore[return-value]
         if handle is not None:
-            with GLOBAL_TRACER.span("search.device"):
+            with GLOBAL_TRACER.span("search.device"), device_trace("search"):
                 results = index.search_batch_gather(handle)
             with GLOBAL_TRACER.span("search.render"):
                 for (i, query, K, _), qres in zip(pending, results):

@@ -7,7 +7,14 @@ the port's copy of the JAX package's numpy planner, in index/planner.py.
 This module builds the lexicons, dense-row assignment and light bucket
 table on the host, as nextsearch_tpu/index/segment.py's DeviceIndex does,
 and holds what runs on the card: the uploads, the launch, the gather with
-its guard relaunch, the row top-k build and hbm_bytes. The fused, exact
+its guard relaunch, the row top-k build and hbm_bytes.
+
+The build switches are the reference's, with its defaults: the dense rows
+are built on the device (NEXTSEARCH_DEVICE_BUILD=0 builds them, and the
+heavy bucket table, on the host and uploads the finished table once); the
+light bucket table and the row top-k are built on the host
+(NEXTSEARCH_LIGHT_BUILD=device and NEXTSEARCH_ROW_TOPK_BUILD=device build
+them on the device, index/device_build.py). The fused, exact
 and fast modes plan with plan_full and launch ops/bm25.py; they keep the
 postings and the dense rows on the device and none of the sparse mode's
 tables (light buckets, 1-term shortcut tables, merged multi-segment rows).
@@ -34,11 +41,13 @@ import torch
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..ops.bm25 import bm25_search_packed, bm25_topk_exact, bm25_topk_fast
 from ..ops.bm25_sparse import (
-    LIGHT_BUCKET_LOG2, packed_impl, packed_multi, unified_impl,
+    BUCKET_LOG2, LIGHT_BUCKET_LOG2, packed_impl, packed_multi, unified_impl,
 )
 from ..utils.logging import log
 from .builder import SegmentArrays, eager_scores
-from .device_build import build_heavy_on_device
+from .device_build import (
+    build_heavy_on_device, build_light_on_device, build_row_topk_on_device,
+)
 from .planner import (
     QueryResult,
     SparsePlanner,
@@ -48,16 +57,6 @@ from .planner import (
     _log_build_phases,
     _round_up,
 )
-
-# Environment switches that pick reference paths the port does not carry.
-_UNPORTED_ENV = (
-    ("NEXTSEARCH_DEVICE_BUILD", "1", "host-built dense rows", "queue 1 item 5"),
-    ("NEXTSEARCH_LIGHT_BUILD", "host", "device-built light table",
-     "queue 1 item 5"),
-    ("NEXTSEARCH_ROW_TOPK_BUILD", "host", "device-built row top-k",
-     "queue 1 item 5"),
-)
-
 
 class _HostCopy:
     """Results on their way to the host: a non-blocking copy of each tensor
@@ -118,11 +117,6 @@ class TorchIndex(SparsePlanner):
         dcfg = config.device
         if dcfg.mode not in ("fused", "exact", "fast", "sparse"):
             raise ValueError(f"unknown device mode {dcfg.mode!r}")
-        for env, default, what, item in _UNPORTED_ENV:
-            if os.environ.get(env, default) != default:
-                raise NotImplementedError(
-                    f"{env}: {what} is not ported: ROADMAP {item}"
-                )
         self.device = torch.device(device)
         # the fused mode's heavy product and the plain versions of the
         # kernels are f32 matmuls: no TF32 operands (PyTorch's default)
@@ -243,13 +237,20 @@ class TorchIndex(SparsePlanner):
                 start, dfv, _ = self.lex[seg_i][term]
                 self.lex[seg_i][term] = (start, dfv, row_id)
         nd1_pad = _round_up(self.n_dense + 1, 8)
+        self._device_build = (
+            os.environ.get("NEXTSEARCH_DEVICE_BUILD", "1") == "1")
+        # the light table is built on the device only beside a device build
+        # of the dense rows, as in the reference
+        light_device = self._sparse and self._device_build and (
+            os.environ.get("NEXTSEARCH_LIGHT_BUILD", "host") != "host")
 
         # the light bucket table exists only in sparse mode
         self._light_row: List[Dict[str, int]] = []
         self._lb_log2 = LIGHT_BUCKET_LOG2
         self.n_light = 0
         light_host, light_max_occ = (
-            self._build_light_rows(post_doc_parts, heavy_entries)
+            self._build_light_rows(post_doc_parts, heavy_entries,
+                                   table=not light_device)
             if self._sparse else (None, 0)
         )
         tick("light_rows")
@@ -278,34 +279,59 @@ class TorchIndex(SparsePlanner):
             h_starts = [h[3] for h in heavy]
             h_dfs = [h[0] for h in heavy]
             h_rows = None
-        self.dense_rows, self.bucket_pos, heavy_max_occ = build_heavy_on_device(
-            self.post_doc, self.post_score, h_starts, h_dfs, rows=h_rows,
-            n_rows_pad=nd1_pad, n_slots=self.n_slots,
-            bf16=dcfg.dense_rows_bf16,
-            with_buckets=self._sparse and not self._heavy_direct,
-        )
+        with_buckets = self._sparse and not self._heavy_direct
+        if self._device_build:
+            self.dense_rows, self.bucket_pos, heavy_max_occ = (
+                build_heavy_on_device(
+                    self.post_doc, self.post_score, h_starts, h_dfs,
+                    rows=h_rows, n_rows_pad=nd1_pad, n_slots=self.n_slots,
+                    bf16=dcfg.dense_rows_bf16, with_buckets=with_buckets,
+                ))
+        else:
+            self.dense_rows, self.bucket_pos, heavy_max_occ = (
+                self._build_heavy_host(
+                    post_doc, post_score, h_starts, h_dfs, h_rows,
+                    n_rows_pad=nd1_pad, with_buckets=with_buckets,
+                ))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        tick("heavy_device_build" if self._device_build
+             else "host_tables_upload")
+        self.light_bucket_pos = None
+        if light_device:
+            l_starts = np.zeros(self.n_light, np.int64)
+            l_dfs = np.zeros(self.n_light, np.int64)
+            for seg_i, lmap in enumerate(self._light_row):
+                lex = self.lex[seg_i]
+                for t, row in lmap.items():
+                    l_starts[row], l_dfs[row] = lex[t][0], lex[t][1]
+            self.light_bucket_pos, light_max_occ = build_light_on_device(
+                self.post_doc, l_starts, l_dfs, n_rows_pad=self.n_light + 1,
+                n_slots=self.n_slots, bucket_log2=self._lb_log2,
+            )
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            tick("light_device_build")
+        elif self._sparse:
+            self.light_bucket_pos = torch.as_tensor(light_host, device=dev)
         # the rescore's binary search covers the fullest bucket of either
         # table (the heavy one exists only with bf16 rows)
         self._bs_depth = max(
             2, int(max(heavy_max_occ, light_max_occ, 1)).bit_length())
-        self.light_bucket_pos = (
-            torch.as_tensor(light_host, device=dev) if self._sparse else None
-        )
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        tick("heavy_device_build")
         self._build_row_topk(post_doc, post_score)
         tick("row_topk")
         self._build_light_topk(post_doc_parts, post_score_parts)
         tick("light_topk")
         self._build_merged_lex()
         tick("merged_lex")
+        self.build_phases = dict(phases)  # seconds by build phase
         _log_build_phases(phases)
 
-    def _build_light_rows(self, post_doc_parts, heavy_entries):
-        """The sparse mode's light bucket-position table, host-built: returns
-        (table int32 [n_light + 1, nbl + 1], its fullest bucket's posting
-        count) and sets n_light, _light_row and _lb_log2."""
+    def _build_light_rows(self, post_doc_parts, heavy_entries, table=True):
+        """The sparse mode's light rows: sets n_light, _light_row and
+        _lb_log2 and returns the host-built light bucket-position table
+        (int32 [n_light + 1, nbl + 1]) with its fullest bucket's posting
+        count, or (None, 0) without `table` (the device builds it)."""
         # Light bucket-position table (host-built, one upload): one row per
         # light (term, segment), first-posting offset per 2^lb_log2-slot
         # bucket; row n_light is the zero sentinel. Granularity coarsens
@@ -334,7 +360,7 @@ class TorchIndex(SparsePlanner):
             term_row = np.full(len(seg.terms), -1, np.int64)
             term_row[lt_idx] = base_row + np.arange(lt_idx.shape[0])
             self._light_row.append({seg.terms[i]: int(term_row[i]) for i in lt_idx})
-            if lt_idx.shape[0]:
+            if lt_idx.shape[0] and table:
                 row_of_post = np.repeat(
                     term_row - base_row, seg.term_df.astype(np.int64)
                 )
@@ -354,6 +380,8 @@ class TorchIndex(SparsePlanner):
                 counts_parts.append(cnt.reshape(lt_idx.shape[0], nbl))
             base_row += lt_idx.shape[0]
         self.n_light = base_row
+        if not table:
+            return None, 0
         light_host = np.zeros((base_row + 1, nbl + 1), np.int32)
         light_max_occ = 0
         if counts_parts:
@@ -362,18 +390,55 @@ class TorchIndex(SparsePlanner):
             np.cumsum(counts, axis=1, out=light_host[:base_row, 1:])
         return light_host, light_max_occ
 
+    def _build_heavy_host(self, post_doc, post_score, starts, dfs, rows, *,
+                          n_rows_pad: int, with_buckets: bool):
+        """NEXTSEARCH_DEVICE_BUILD=0: the dense rows (and, with bf16 rows in
+        sparse mode, the heavy bucket table) written on the host and
+        uploaded once, as the reference's host path. Returns the
+        build_heavy_on_device triple. One host table of the stored dtype:
+        each row's scores are rounded to bf16 (to nearest even) by torch's
+        cast as they are written, which gives the device build's bits."""
+        dcfg = self.config.device
+        dtype = torch.bfloat16 if dcfg.dense_rows_bf16 else torch.float32
+        host = torch.zeros((n_rows_pad, self.n_slots), dtype=dtype)
+        nb = (self.n_slots + (1 << BUCKET_LOG2) - 1) >> BUCKET_LOG2
+        bucket_host = (np.zeros((n_rows_pad, nb + 1), np.int32)
+                       if with_buckets else None)
+        bounds = np.arange(nb + 1, dtype=np.int64) << BUCKET_LOG2
+        occ = 0
+        for e, (start, df) in enumerate(zip(starts, dfs)):
+            row = e if rows is None else rows[e]
+            docs = post_doc[start:start + df].astype(np.int64)
+            host[row, torch.from_numpy(docs)] = torch.from_numpy(
+                post_score[start:start + df]).to(dtype)
+            if bucket_host is not None:
+                bucket_host[row] = np.searchsorted(docs, bounds, side="left")
+                occ = max(occ, int(np.diff(bucket_host[row]).max()))
+        dev = self.device
+        dense = host.to(dev)
+        del host
+        bucket_pos = (torch.as_tensor(bucket_host, device=dev)
+                      if bucket_host is not None else None)
+        return dense, bucket_pos, occ
+
     def _build_row_topk(self, post_doc_np=None, post_score_np=None) -> None:
-        """Exact canonical top-k of the df-head dense rows, from the host
-        postings (the reference's default host path). None with bf16 rows,
-        as in the reference."""
+        """Exact canonical top-k of the df-head dense rows: from the host
+        postings (the reference's default), or from the device's dense rows
+        under NEXTSEARCH_ROW_TOPK_BUILD=device. None with bf16 rows, as in
+        the reference."""
         dcfg = self.config.device
         self._row_topk = None
         if not (self._sparse and self._heavy_direct):
             return
         n = min(self.n_dense, dcfg.row_topk_rows)
         k = min(dcfg.row_topk_k, self.n_slots)
-        if n > 0 and k > 0:
+        if n <= 0 or k <= 0:
+            return
+        if os.environ.get("NEXTSEARCH_ROW_TOPK_BUILD", "host") == "host":
             self._row_topk = self._row_topk_host(n, k, post_doc_np, post_score_np)
+        else:
+            self._row_topk = build_row_topk_on_device(
+                self.dense_rows, n, k=k, n_slots=self.n_slots)
 
     # ---------------- execution ----------------
 

@@ -34,8 +34,9 @@ them into FMAs).
 
 ``prof_skip`` drops named stages for stage attribution
 (nextsearch_tpu_torch/benchmarks/profile_serving.py); its results are
-wrong by design. Paths the port does not carry yet raise
-NotImplementedError naming their ROADMAP item.
+wrong by design. NEXTSEARCH_SORT2_2LEVEL=1 takes the reference's 2-level
+reduction of the guarded fast path's selection sort
+(``topk_quantized_reduce``), off by default as there.
 """
 
 from __future__ import annotations
@@ -161,6 +162,42 @@ def _per_query_window(q2, n: int, Q: int, k2: int):
     return idx.clamp(0, max(n - 1, 0)), in_q
 
 
+def topk_quantized_reduce(comp, sq, Q: int, k2: int, sent):
+    """The exact 2-level reduction of the quantized selection sort (port of
+    _topk_quantized_reduce): the composite keys of a (q, doc)-sorted flat
+    stream (n a multiple of 128; every in-run lane keeps its query id, so
+    each 128-lane row's query groups keep their (q, doc) lane counts) cut
+    to fewer lanes that hold every query's top-k2 unchanged:
+
+      1. sort each 128-lane row on its own and keep its first k2 lanes:
+         they cover every query that is its row's first group;
+      2. for the one row per query whose run starts mid-row, gather the
+         k2-wide window of the sorted stream from the run's start, masked
+         to lanes past the row's first k2 (no duplicate lane), inside the
+         run and inside the row (the run's next row is covered by 1);
+         masked lanes carry the sentinel `sent`.
+
+    The caller's flat sort over the result gives each query the pool of
+    the one-level sort, lane for lane."""
+    n = comp.shape[0]
+    rows = torch.sort(comp.view(n // 128, 128), dim=1).values
+    red = rows[:, :k2].reshape(-1)
+    bounds = torch.searchsorted(
+        sq, torch.arange(Q + 1, dtype=sq.dtype, device=sq.device))
+    start = bounds[:Q, None]
+    j = torch.arange(k2, dtype=torch.int64, device=sq.device)[None, :]
+    pos = start + j
+    g = start & 127
+    row_end = (start | 127) + 1
+    ok = (g + j >= k2) & (pos < row_end) & (pos < bounds[1:, None])
+    ex = torch.where(ok, rows.view(-1)[pos.clamp(0, n - 1)],
+                     torch.full_like(pos, sent))
+    return torch.cat([red, ex.reshape(-1)])
+
+
+topk_quantized_reduce.calls = 0  # launches that took the 2-level branch
+
+
 def per_query_topk_flat(sq, score, payload, Q: int, k2: int, *,
                         quantized: bool = False):
     """Top-k2 payloads per query by (score desc, payload asc) from a flat
@@ -177,16 +214,6 @@ def per_query_topk_flat(sq, score, payload, Q: int, k2: int, *,
     pay = torch.where(live_sc, payload.to(torch.int64),
                       torch.full_like(sq, PAD_DOC))
     if quantized:
-        if (
-            n >= 32768
-            and n % 128 == 0
-            and k2 <= 128
-            and os.environ.get("NEXTSEARCH_SORT2_2LEVEL", "0") == "1"
-        ):
-            raise NotImplementedError(
-                "2-level quantized selection sort (NEXTSEARCH_SORT2_2LEVEL=1) "
-                "is not ported: ROADMAP queue 1 item 12"
-            )
         qbits = (Q + 1).bit_length()
         shift = 32 - qbits
         max_sc = (1 << shift) - 1
@@ -194,12 +221,22 @@ def per_query_topk_flat(sq, score, payload, Q: int, k2: int, *,
         sc_hi = torch.where(live_sc, bits >> qbits, torch.zeros_like(bits))
         qv = torch.where(sq < Q, sq, torch.full_like(sq, Q))
         key = (qv << shift) | (max_sc - sc_hi)
-        key2 = torch.sort((key << 31) | pay).values  # values only: ties are equal
+        comp = (key << 31) | pay  # the reference's (key, pay) sort order
+        if (
+            n >= 32768
+            and n % 128 == 0
+            and k2 <= 128
+            and os.environ.get("NEXTSEARCH_SORT2_2LEVEL", "0") == "1"
+        ):
+            sent = (((Q << shift) | max_sc) << 31) | PAD_DOC
+            comp = topk_quantized_reduce(comp, sq, Q, k2, sent)
+            topk_quantized_reduce.calls += 1
+        key2 = torch.sort(comp).values  # values only: ties are equal
         kq = key2 >> 31
         pay2 = key2 & ((1 << 31) - 1)
         q2 = kq >> shift
         sc2 = max_sc - (kq & max_sc)
-        idx, in_q = _per_query_window(q2, n, Q, k2)
+        idx, in_q = _per_query_window(q2, key2.shape[0], Q, k2)
         sc_at = sc2[idx]
         live = in_q & (sc_at > 0)
         docs = torch.where(live, pay2[idx], torch.full_like(idx, PAD_DOC))

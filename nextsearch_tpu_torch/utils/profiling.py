@@ -3,20 +3,23 @@
 The reference's tracing is steady_clock spans around search surfaced as
 response timing fields (src/api_server.cpp:120-175) — those fields are kept
 by api/server.py. This module adds the framework-level layer promised in
-SURVEY.md §5: aggregated span timings (per-phase p50/total).
+SURVEY.md §5: aggregated span timings (per-phase p50/total) and optional
+torch.profiler trace capture.
 
-The JAX package's device trace (NEXTSEARCH_PROFILE_DIR) has no torch
-counterpart yet: the port's Engine raises when it is set (ROADMAP queue 1
-item 4).
+Env: NEXTSEARCH_PROFILE_DIR=<dir> enables torch.profiler traces around
+device calls, written as Chrome traces (chrome://tracing, Perfetto).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from typing import Dict, List
+
+from .logging import log
 
 
 class Tracer:
@@ -76,3 +79,57 @@ class Tracer:
 
 
 GLOBAL_TRACER = Tracer()
+
+
+_TRACE_LOCK = threading.Lock()  # torch.profiler runs one trace per process
+
+
+@contextmanager
+def device_trace(tag: str = "trace"):
+    """torch.profiler trace (CPU activities, and CUDA ones when a card is
+    present) written as a Chrome trace under $NEXTSEARCH_PROFILE_DIR/<tag>/
+    when the variable is set; a no-op otherwise. On a card the trace waits
+    for the kernels launched inside it before it closes (a trace records
+    the kernels launched while it is open). The reference's
+    jax.profiler.trace cannot nest either: a trace asked for while another
+    is open (overlapping requests) is skipped and logged, and a profiler
+    that fails to start or to write is logged; the traced call runs
+    either way."""
+    profile_dir = os.environ.get("NEXTSEARCH_PROFILE_DIR")
+    if not profile_dir:
+        yield
+        return
+    if not _TRACE_LOCK.acquire(blocking=False):
+        log("profile", f"trace {tag!r} skipped: another trace is open")
+        yield
+        return
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = torch.cuda.is_available()
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        prof = None
+        try:
+            prof = profile(activities=acts)
+            prof.__enter__()
+        except Exception as e:  # noqa: BLE001 - never fail the traced call
+            log("profile", f"trace {tag!r} not started: {e}", level="error")
+            prof = None
+        try:
+            yield
+        finally:
+            if prof is not None:
+                try:
+                    if cuda:  # the kernels launched inside run to their end
+                        torch.cuda.synchronize()
+                    prof.__exit__(None, None, None)
+                    out = os.path.join(profile_dir, tag)
+                    os.makedirs(out, exist_ok=True)
+                    prof.export_chrome_trace(os.path.join(
+                        out, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+                except Exception as e:  # noqa: BLE001
+                    log("profile", f"trace {tag!r} not written: {e}",
+                        level="error")
+    finally:
+        _TRACE_LOCK.release()

@@ -35,14 +35,17 @@ import json
 import os
 import statistics
 import sys
-import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
 from unittest import mock
 
 REPO = Path(__file__).resolve().parent
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+sys.path.insert(0, str(REPO))
+# the trace reader lives with the benchmark scripts, which use it too
+from nextsearch_tpu_torch.benchmarks.common import (  # noqa: E402,F401
+    DEVICE_CATS, busy_us, device_events, summarize, traced,
+)
 # name, index mode, DeviceConfig fields, environment
 PATHS = (
     ("default", "sparse", {}, {}),
@@ -50,67 +53,6 @@ PATHS = (
     ("K4", "sparse", {}, {"NEXTSEARCH_SELECT_PALLAS": "1"}),
     ("fused", "fused", {}, {}),
 )
-
-
-def device_events(trace: dict) -> list:
-    """(start_us, end_us, name, cat) of the trace's device events."""
-    return [
-        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e.get("name", ""),
-         e["cat"])
-        for e in trace.get("traceEvents", [])
-        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
-    ]
-
-
-def busy_us(events) -> float:
-    """Length of the union of the events' [start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e, *_ in sorted(events):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
-def summarize(trace: dict, n_batches: int, top: int = 10) -> dict:
-    """Per-batch device time and kernel count, the span's idle share, and
-    the largest kernels of one trace."""
-    ev = device_events(trace)
-    kern = [e for e in ev if e[3] == "kernel"]
-    busy = busy_us(ev)
-    span = (max(e[1] for e in ev) - min(e[0] for e in ev)) if ev else 0.0
-    by_name: dict = {}
-    for s, e, name, _ in kern:
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(
-        device_ms_per_batch=busy / 1e3 / n_batches,
-        kernel_sum_ms_per_batch=sum(e - s for s, e, *_ in kern) / 1e3 / n_batches,
-        kernels_per_batch=len(kern) / n_batches,
-        span_ms=span / 1e3,
-        idle_share=(1.0 - busy / span) if span else None,
-        top_kernels=[(name[:80], t / 1e3 / n_batches) for name, t in largest],
-    )
-
-
-def traced(fn, n_batches: int) -> dict:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
-    return summarize(trace, n_batches)
 
 
 def pipelined(ti, batches, n: int, k: int) -> dict:

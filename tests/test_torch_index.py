@@ -221,19 +221,6 @@ def test_group_launches(segs):
     check(ti, segs, queries, di)
 
 
-@pytest.mark.parametrize("kw,env", [
-    # every device mode is ported; these build paths are not
-    (dict(mode="fused"), ("NEXTSEARCH_DEVICE_BUILD", "0")),
-    ({}, ("NEXTSEARCH_ROW_TOPK_BUILD", "device")),
-    ({}, ("NEXTSEARCH_LIGHT_BUILD", "device")),
-])
-def test_unported_configurations_raise(segs, monkeypatch, kw, env):
-    if env:
-        monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchIndex(segs, config=port_config(_cfg(**kw)), device="cpu")
-
-
 @pytest.mark.parametrize("fast", [True, False])
 def test_unified_launch_matches_reference(segs, fast, monkeypatch):
     """unified=True takes the unified-totals launch (K5) on single

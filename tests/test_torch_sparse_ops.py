@@ -255,8 +255,11 @@ def test_canonical_sort_and_dedup_match():
     assert np.array_equal(gd2.numpy(), np.asarray(rd2))
 
 
-def _run_both(di, plan, U, *, use_compact, fast, dense2=None, multi=False):
+def _run_both(di, plan, U, *, use_compact, fast, dense2=None, multi=False,
+              C=None):
     st = _statics(di, plan if not multi else plan[0], U)
+    if C is not None:
+        st["C"] = C
     if multi:
         for g in range(1, plan.shape[0]):
             st["C"] = max(st["C"], di._chunk_budget(plan[g, 1], BLOCK))
@@ -321,24 +324,78 @@ def test_packed_multi_matches(segs):
     assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
 
 
-@pytest.mark.parametrize("kw,msg", [
-    # a flat light stream of 512 * 64 lanes takes the 2-level sort2
-    (dict(fast_heavy=True, C=512), "SORT2_2LEVEL"),
-])
-def test_unported_paths_raise(di, kw, msg, monkeypatch):
-    monkeypatch.setenv("NEXTSEARCH_SORT2_2LEVEL", "1")
-    plan, U = di.plan_sparse(_queries(24, n=4))
-    st = _statics(di, plan, U)
-    st.update(kw)
-    a = _arrays(di)
-    with pytest.raises(NotImplementedError, match=msg):
-        tsp.packed_impl(_t(a["post_doc"]), _t(a["post_score"]),
-                        _t(a["dense2"]), _t(a["lbp"]), _t(plan), **st)
+def _two_level_stream(seed, Q, n=64 * 1024):
+    """The reference's 2-level sort2 test stream: heavy-tailed runs incl.
+    empty ones and mid-row starts, near-uniform scores (vast tie mass after
+    quantization), zero-score lanes inside runs."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 1500 * 64 // Q, Q)
+    short = rng.random(Q) < 0.3
+    lens[short] = rng.integers(0, 40, int(short.sum()))
+    total = int(lens.sum())
+    assert total < n
+    sq = np.full(n, Q, np.int32)
+    sq[:total] = np.repeat(np.arange(Q, dtype=np.int32), lens)
+    score = np.zeros(n, np.float32)
+    score[:total] = (1.0 + rng.integers(0, 3, total) * 1e-7).astype(np.float32)
+    zero_at = rng.random(total) < 0.1
+    score[:total][zero_at] = 0.0
+    payload = np.arange(n, dtype=np.int32) % 100003
+    return lens, sq, score, payload
 
 
-def test_two_level_sort_raises(monkeypatch):
+@pytest.mark.parametrize("seed,Q,k2", [(3, 64, 32), (4, 64, 128), (5, 7, 100)])
+def test_sort2_two_level_matches_one_level(monkeypatch, seed, Q, k2):
+    """The port's copy of tests/test_ops_edges.py's 2-level test: under
+    NEXTSEARCH_SORT2_2LEVEL=1 the quantized selection takes the 2-level
+    reduction and equals the one-level sort lane for lane, and both equal
+    the JAX per_query_topk_flat's."""
+    lens, sq, score, payload = _two_level_stream(seed, Q)
+
+    def run():
+        d, v = tsp.per_query_topk_flat(_t(sq), _t(score), _t(payload), Q, k2,
+                                       quantized=True)
+        rd, rv = jsp.per_query_topk_flat(
+            jnp.asarray(sq), jnp.asarray(score), jnp.asarray(payload), Q, k2,
+            jnp.int32(2**30), quantized=True)
+        assert np.array_equal(d.numpy(), np.asarray(rd))
+        assert np.array_equal(v.numpy().view(np.uint32),
+                              np.asarray(rv).view(np.uint32))
+        return d.numpy(), v.numpy()
+
+    monkeypatch.setenv("NEXTSEARCH_SORT2_2LEVEL", "0")
+    calls = tsp.topk_quantized_reduce.calls
+    d1, v1 = run()
+    assert tsp.topk_quantized_reduce.calls == calls
     monkeypatch.setenv("NEXTSEARCH_SORT2_2LEVEL", "1")
-    n = 32768
-    sq = torch.zeros(n, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="SORT2_2LEVEL"):
-        tsp.per_query_topk_flat(sq, torch.ones(n), sq, 1, 32, quantized=True)
+    d2, v2 = run()
+    assert tsp.topk_quantized_reduce.calls == calls + 1
+    assert np.array_equal(d1, d2)
+    assert np.array_equal(v1.view(np.uint32), v2.view(np.uint32))
+    # sanity: pools actually filled for long runs (a tenth of a run's
+    # lanes have zero scores)
+    assert (lens >= 2 * k2).any()
+    assert (d1[lens >= 2 * k2][:, :k2] < 2**30).all()
+
+
+def test_packed_impl_two_level_sort2_matches(di, monkeypatch):
+    """A guarded fast launch whose flat light stream (512 chunks of 64
+    lanes) takes the 2-level sort2: the packed output equals the JAX
+    launch's under the same switch and the one-level launch's, bit for bit
+    (bf16-exact table and weights, as the fast-mode test above)."""
+    monkeypatch.setenv("NEXTSEARCH_SORT2_2LEVEL", "1")
+    plan, U = di.plan_sparse(
+        _queries(22, weights=[0.5, 0.75, 1.0, 1.25, 1.5], distinct=True)
+    )
+    dense2 = _t(_arrays(di)["dense2"]).to(torch.bfloat16).float().numpy()
+    calls = tsp.topk_quantized_reduce.calls
+    got, ref = _run_both(di, plan, U, use_compact=True, fast=True,
+                         dense2=dense2, C=512)
+    assert tsp.topk_quantized_reduce.calls == calls + 1
+    assert ref[:, -1].sum() > 10
+    assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    monkeypatch.setenv("NEXTSEARCH_SORT2_2LEVEL", "0")
+    one, _ref = _run_both(di, plan, U, use_compact=True, fast=True,
+                          dense2=dense2, C=512)
+    assert tsp.topk_quantized_reduce.calls == calls + 1
+    assert np.array_equal(got.view(np.uint32), one.view(np.uint32))
