@@ -42,7 +42,14 @@ non-zero before the last line:
    wrapper (ms) and as the bare C entry point on preallocated outputs
    (raw_ms). K3's two copy kernels (the unrolled register copy that
    callers get, the first port's) are held bit-equal and timed in turns
-   on the same operands (ab_old_ms, ab_new_ms).
+   on the same operands (ab_old_ms, ab_new_ms); so are K4's (the
+   threshold select, the first port's k2 rounds) and P3's (the band
+   kernel, the first port's one thread per cell), as raw entries
+   (ab_first_ms, ab_new_ms). K4 is timed beside the flat selection sort
+   that its path replaces (replaced_exact_ms, replaced_quantized_ms: a
+   yardstick, not a library call). The kernels line carries
+   launch_floor_ms, P5's raw time at [1, 128]: one 16 x 16 block moving
+   512 bytes.
 4. main path: batch 512 / k 10 through search_batch_async /
    search_batch_gather, the launch counters reset before each launch and
    read after it, each launch spot-checked bit-exact against the oracle:
@@ -386,6 +393,17 @@ def k3_ab(fn, ids, table, device, reps: int) -> dict:
     return dict(ab_old_ms=times[True], ab_new_ms=times[False])
 
 
+def ab_small(first, new, device, reps: int) -> dict:
+    """A redesigned kernel under ~0.1 ms and the first port's, as raw C
+    entry calls on preallocated outputs, timed in turns (first, new, new,
+    first) over the same calls per event pair."""
+    inner = inner_for(new, device)
+    times = {True: [], False: []}
+    for f in (True, False, False, True):
+        times[f].append(timed(first if f else new, device, reps, inner))
+    return dict(ab_first_ms=times[True], ab_new_ms=times[False], ab_inner=inner)
+
+
 def build_index(device, n_docs: int, vocab: int, batch: int, n_batches: int,
                 mode: str = "sparse", **device_fields):
     """Bench corpus (artifact-cached under the temp dir), TorchIndex at the
@@ -562,6 +580,7 @@ def check_probe_kernels(device, reps: int, shape: dict):
 
     from nextsearch_tpu_torch.benchmarks import kernel_probe, probe_fusedmm
     from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops import probe_kernels as pk
 
     bf16 = torch.bfloat16
     mix, dense = probe_fusedmm.operands(device, **shape)
@@ -640,6 +659,8 @@ def check_probe_kernels(device, reps: int, shape: dict):
     for name, (label, kern, plain, tol) in kernel_probe.calls(args).items():
         got = kern()
         lib = library[name]
+        if lib[1] <= nbytes(got):
+            raise AssertionError(f"{name}: bound omits the inputs or output")
         err = kernel_probe.check(got, plain(), tol)
         raw = None
         if name in raws:
@@ -647,8 +668,24 @@ def check_probe_kernels(device, reps: int, shape: dict):
             raw()
             if not torch.equal(raw_out, got):
                 raise AssertionError(f"{name}: raw launch differs from wrapper")
-        out[name] = dict(max_abs_err=err, **bound(lib[1] + nbytes(got), lib[2]),
+        out[name] = dict(max_abs_err=err, **bound(lib[1], lib[2]),
                          **timed_small(device, reps, kern, plain, lib[0], raw))
+    wq, wv, wd = args["window_op"]
+    qt = dict(q=kernel_probe.Q, tile=kernel_probe.TILE)
+    if not torch.equal(pk.window_op(wq, wv, wd, first=True, **qt),
+                       pk.window_op(wq, wv, wd, **qt)):
+        raise AssertionError("P3: the first kernel differs from the band kernel")
+    if "window_op" in raws:
+        o_first = torch.full((qt["q"], qt["tile"]), 7.0, device=device)
+        first = raw_entry("ns_probe_window_op", device, wq.data_ptr(),
+                          wv.data_ptr(), wd.data_ptr(), o_first.data_ptr(),
+                          qt["q"], qt["tile"], wv.numel(), 1)
+        first()
+        if not torch.equal(o_first, raws["window_op"][1]):
+            raise AssertionError("P3: raw first kernel differs from the band kernel")
+        out["window_op"].update(ab_small(first, raws["window_op"][0], device, reps))
+        say(f"P3 A/B (first, new, new, first): "
+            f"{out['window_op']['ab_first_ms']} / {out['window_op']['ab_new_ms']} ms")
     wide = out.pop("transpose_wide")
     out["transpose"].update(prefixed("wide_", wide))
     for name, v in out.items():
@@ -745,9 +782,12 @@ def k1_dense(mix, dense, k6, device, reps: int, rtol: float) -> dict:
 
 def probe_library(args: dict) -> dict:
     """P1-P5: name -> (the one PyTorch call that computes the probe's
-    function, or None; input bytes; fp32 operations). P4's input is already
+    function, or None; the bytes it must move, each input read once and
+    each f32 output written once; fp32 operations). P4's input is already
     contiguous, where .contiguous() returns it without work, so its
     yardstick is the copy clone() makes."""
+    from nextsearch_tpu_torch.benchmarks.kernel_probe import Q, ROWS, TILE
+
     a, b = args["nt_dot"]
     e, off = args["row_copy"]
     wq, wv, wd = args["window_op"]
@@ -755,15 +795,17 @@ def probe_library(args: dict) -> dict:
     (t,) = args["transpose"]
     (tw,) = args["transpose_wide"]
     q, w = a.shape
+    row = e.shape[1] * e.element_size()
     return {
-        "nt_dot": (lambda: a @ b.T, nbytes(a, b), 2.0 * q * b.shape[0] * w),
-        # one row of e is read, and the index
-        "row_copy": (None, e.shape[1] * e.element_size() + nbytes(off), 0.0),
-        "window_op": (None, nbytes(wq, wv, wd), 0.0),
+        "nt_dot": (lambda: a @ b.T, nbytes(a, b) + 4 * q * b.shape[0],
+                   2.0 * q * b.shape[0] * w),
+        # one row of e is read, and the index; ROWS copies are written
+        "row_copy": (None, row + nbytes(off) + ROWS * row, 0.0),
+        "window_op": (None, nbytes(wq, wv, wd) + 4 * Q * TILE, 0.0),
         "reshape_copy": (lambda: r.reshape(512, r.shape[-1]).clone(),
-                         nbytes(r), 0.0),
-        "transpose": (lambda: t.t().contiguous(), nbytes(t), 0.0),
-        "transpose_wide": (lambda: tw.t().contiguous(), nbytes(tw), 0.0),
+                         2 * nbytes(r), 0.0),
+        "transpose": (lambda: t.t().contiguous(), 2 * nbytes(t), 0.0),
+        "transpose_wide": (lambda: tw.t().contiguous(), 2 * nbytes(tw), 0.0),
     }
 
 
@@ -833,12 +875,20 @@ def check_unified(ti, plan, mix_c, ids, device, reps):
 
 def check_select(ti, plan, mix_c, t_bf16, device, reps):
     """K4 against its plain version on the plan's light selection scores
-    (light totals + fast H at each (q, doc)): bit-exact."""
+    (light totals + fast H at each (q, doc)): the threshold select that
+    callers get and the first port's kernel, each bit-exact through the
+    wrapper and the raw entry; the two timed in turns, and beside them the
+    flat selection sort that the K4 path replaces (per_query_topk_flat over
+    the same stream, exact and quantized) as a yardstick, not a library
+    call."""
     import torch
 
     from nextsearch_tpu_torch.ops import heavy_kernels as hk
     from nextsearch_tpu_torch.ops import select_kernels as sk
-    from nextsearch_tpu_torch.ops.bm25_sparse import light_totals
+    from nextsearch_tpu_torch.ops.bm25_sparse import (
+        light_totals,
+        per_query_topk_flat,
+    )
 
     plan_np = plan.cpu().numpy()
     with mock.patch.dict(os.environ, NEXTSEARCH_SELECT_PALLAS="1"):
@@ -862,24 +912,41 @@ def check_select(ti, plan, mix_c, t_bf16, device, reps):
     say(f"K4 operands: {sel.numel()} lanes, w_max={w_max}, longest window "
         f"{int(wins.max())}, k2={k2}")
     exp = sk.per_query_topk_ref(sel, bounds, k2)
-    got = sk.per_query_topk(sel, bounds, k2)
-    if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
-        raise AssertionError("K4 differs from plain")
-    raw = None
+    for first in (True, False):
+        got = sk.per_query_topk(sel, bounds, k2, first=first)
+        if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
+            raise AssertionError(f"K4 first={first} differs from plain")
+    raw, ab = None, {}
     if device.type == "cuda":
         b64 = bounds.to(torch.int64).contiguous()
-        raw_out = [torch.zeros_like(t) for t in got]
-        raw = raw_entry("ns_per_query_topk", device, sel.data_ptr(),
-                        b64.data_ptr(), sel.numel(), q, k2,
-                        *(t.data_ptr() for t in raw_out))
-        raw()
-        if not all(torch.equal(a, b) for a, b in zip(raw_out, exp)):
-            raise AssertionError("K4 raw launch differs from plain")
+        raws, outs = {}, {}
+        for first in (True, False):
+            # the first kernel writes only live slots; the new one, all.
+            # outs keeps each call's outputs alive while it is timed
+            outs[first] = [torch.zeros_like(t) if first else torch.full_like(t, 7)
+                           for t in got]
+            raws[first] = raw_entry("ns_per_query_topk", device, sel.data_ptr(),
+                                    b64.data_ptr(), sel.numel(), q, k2,
+                                    *(t.data_ptr() for t in outs[first]),
+                                    int(first))
+            raws[first]()
+            if not all(torch.equal(a, b) for a, b in zip(outs[first], exp)):
+                raise AssertionError(f"K4 raw first={first} differs from plain")
+        raw = raws[False]
+        ab = ab_small(raws[True], raw, device, reps)
+        say(f"K4 A/B (first, new, new, first): {ab['ab_first_ms']} / "
+            f"{ab['ab_new_ms']} ms")
+    flat = {f"replaced_{name}_ms": (lambda quant=quant: per_query_topk_flat(
+        sq, sel, sd, q, k2, quantized=quant)) for name, quant in
+        (("exact", False), ("quantized", True))}
     return dict(
         max_abs_err=float((got[0] - exp[0]).abs().max()),
         **bound(nbytes(sel, bounds, *got)),
         **timed_small(device, reps, lambda: sk.per_query_topk(sel, bounds, k2),
                       lambda: sk.per_query_topk_ref(sel, bounds, k2), raw=raw),
+        **ab,
+        **{k: timed(fn, device, reps, inner_for(fn, device))
+           for k, fn in flat.items()},
     )
 
 
@@ -2707,7 +2774,11 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
                    "library_ms"} - set(entry)
         if missing:
             raise AssertionError(f"kernel {entry['name']} lacks {missing}")
-    print(json.dumps({"kernels": line}), flush=True)
+    # the card's launch floor: P5's bare launch at [1, 128], one 16 x 16
+    # block moving 512 bytes
+    print(json.dumps({"kernels": line,
+                      "launch_floor_ms": kern["transpose"]["raw_ms"]}),
+          flush=True)
     return device
 
 

@@ -32,6 +32,7 @@ import torch
 from ..ops import probe_kernels as pk
 
 Q, W, TILE = 128, 512, 1024
+ROWS = 8  # P2's copies of the row
 
 
 def inputs(device) -> dict:
@@ -72,8 +73,8 @@ def calls(args: dict) -> dict:
         "nt_dot": ("1 NT dot_general", lambda: pk.nt_dot(a, b),
                    lambda: pk.nt_dot_ref(a, b), 2 * W * 2.0 ** -24),
         "row_copy": ("2 dynamic [1,512] row copy",
-                     lambda: pk.row_copy(e, off, 8),
-                     lambda: pk.row_copy_ref(e, off, 8), 0.0),
+                     lambda: pk.row_copy(e, off, ROWS),
+                     lambda: pk.row_copy_ref(e, off, ROWS), 0.0),
         "window_op": ("3 full window op (onehot+NTdot, checked)",
                       lambda: pk.window_op(wq, wv, wd, q=Q, tile=TILE),
                       lambda: pk.window_op_ref(wq, wv, wd, q=Q, tile=TILE),
@@ -114,16 +115,16 @@ def raw_calls(args: dict) -> dict:
     e, off = args["row_copy"]
     wq, wv, wd = args["window_op"]
     (r,) = args["reshape_copy"]
-    o1, o2, o3 = empty(Q, TILE), empty(8, e.shape[1]), empty(Q, TILE)
+    o1, o2, o3 = empty(Q, TILE), empty(ROWS, e.shape[1]), empty(Q, TILE)
     o4 = empty(512, Q)
     out = {
         "nt_dot": entry("ns_probe_nt_dot", o1, a.data_ptr(), b.data_ptr(),
                         o1.data_ptr(), Q, TILE, W),
         "row_copy": entry("ns_probe_row_copy", o2, e.data_ptr(), off.data_ptr(),
-                          o2.data_ptr(), e.shape[0], 8, e.shape[1]),
+                          o2.data_ptr(), e.shape[0], ROWS, e.shape[1]),
         "window_op": entry("ns_probe_window_op", o3, wq.data_ptr(),
                            wv.data_ptr(), wd.data_ptr(), o3.data_ptr(), Q, TILE,
-                           wv.numel()),
+                           wv.numel(), 0),
         "reshape_copy": entry("ns_probe_copy", o4, r.data_ptr(), o4.data_ptr(),
                               r.numel()),
     }

@@ -42,12 +42,13 @@
 //                  per_query_topk_pallas (K4): for each query q, the k2
 //                  largest positive values of scores[bounds[q]:bounds[q+1]],
 //                  as exact f32 values and global flat indices, ties going
-//                  to the lowest index. Slots past the live entries keep the
-//                  zeros the caller filled in.
+//                  to the lowest index, zeros past the live entries: a
+//                  one-pass threshold select (per_query_select_kernel).
 // ns_probe_*       replace benchmarks/mosaic_probe.py's lowering probes
 //                  P1-P5 (t1/k1 .. t5/k5): nt_dot (o = a . b^T), row_copy
 //                  (2 * e[off[0]] at an index read on the device),
-//                  window_op (a scatter-add of W entries), copy (the
+//                  window_op (a scatter-add of W entries, one block per
+//                  band of output rows: window_band_kernel), copy (the
 //                  (4, 128, Q) -> (512, Q) reshape) and transpose.
 //
 // Layouts are the port's: the dense table is [rows, n_slots] and H is
@@ -1320,6 +1321,200 @@ per_query_topk_kernel(const float* __restrict__ scores,
   }
 }
 
+// K4 as callers get it: a one-pass threshold select. The kernel above makes
+// k2 dependent rounds, each rereading the window and crossing two barriers;
+// at the serving operands (512 windows of 384 entries on average, k2 = 32)
+// that is a latency chain of 32 rounds, bound neither by bytes (0.8 MB,
+// below one launch at 3.35 TB/s) nor by arithmetic. What bounds any kernel
+// here is launch latency and the chain of dependent barrier steps, so this
+// one takes a fixed handful of steps whatever k2 is. One 256-thread block
+// owns one query:
+//   1. each entry maps to its value key: the float's bits for a positive
+//      value (order-preserving) and 0 for a dead one (<= 0, NaN). The keys of
+//      a window of up to SEL_TILE entries are staged in shared memory; a
+//      longer window is reread from device memory or L2 on each pass. The
+//      live entries are counted.
+//   2. With more than k2 live, the k2-th largest key is radix-selected 8
+//      bits a pass from the top: a shared-memory histogram of the keys that
+//      share the prefix found so far, a scan from the top bin, and the bin
+//      that holds the k2-th. It stops after a pass whose bin is taken whole.
+//   3. Every key whose prefix is above the selected one is a winner. The
+//      keys equal to it (equal values, once all 32 bits are fixed) are taken
+//      in window order up to the count still missing, by a block prefix
+//      count over flags in window order: the lowest-index tie rule without
+//      a 64-bit key in the passes.
+//   4. The <= k2 winners, in shared memory as (value key, inverted index),
+//      are ordered by (value desc, index asc) by a rank count and written,
+//      with zeros past them.
+constexpr int SELECT_THREADS = 256;
+constexpr int SELECT_WARPS = SELECT_THREADS / 32;
+constexpr int SEL_TILE = 4096;    // window keys staged in shared memory
+constexpr int SEL_K2_MAX = 1024;  // winners held in shared memory
+constexpr int SEL_BINS = 256;     // 8 bits a radix pass, one bin a thread
+static_assert(SEL_BINS == SELECT_THREADS, "one histogram bin per thread");
+
+__device__ __forceinline__ unsigned int sel_value_key(float v) {
+  return v > 0.f ? __float_as_uint(v) : 0u;
+}
+
+__device__ __forceinline__ unsigned long long sel_winner(unsigned int key,
+                                                         long long i) {
+  return (static_cast<unsigned long long>(key) << 32) |
+         (0xFFFFFFFFu - static_cast<unsigned int>(i));
+}
+
+// Inclusive prefix sum of v over the block by thread index, and the block's
+// total. One barrier: the caller alternates `part` (SELECT_WARPS ints) between
+// consecutive scans, so no thread overwrites a buffer another still reads.
+__device__ __forceinline__ int sel_scan(int v, int* part, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += o;
+  }
+  if (lane == 31) part[warp] = v;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < SELECT_WARPS; ++w) {
+    const int p = part[w];
+    before += w < warp ? p : 0;
+    total += p;
+  }
+  return v + before;
+}
+
+__global__ void __launch_bounds__(SELECT_THREADS)
+per_query_select_kernel(const float* __restrict__ scores,
+                        const long long* __restrict__ bounds, long long n,
+                        int k2, float* __restrict__ vals,
+                        long long* __restrict__ gidx) {
+  __shared__ unsigned int keys[SEL_TILE];
+  __shared__ int hist[2][SEL_BINS];
+  __shared__ unsigned long long win[SEL_K2_MAX];
+  __shared__ int part[2][SELECT_WARPS];
+  __shared__ int pick[3];  // selected bin, keys above it, keys in it
+  __shared__ int n_above;
+  const int tid = threadIdx.x;
+  const int q = blockIdx.x;
+  long long s = bounds[q];
+  long long e = bounds[q + 1];
+  s = s < 0 ? 0 : (s > n ? n : s);
+  e = e < s ? s : (e > n ? n : e);
+  const long long len = e - s;
+  const float* w = scores + s;
+  const bool staged = len <= SEL_TILE;
+  auto key_at = [&](long long i) {
+    return staged ? keys[i] : sel_value_key(w[i]);
+  };
+  int scans = 0;  // alternates part[] between consecutive scans
+
+  // 1. stage the keys, count the live ones. A staged window's loads are
+  // all issued before the first is used: one memory latency, not one per
+  // entry a thread holds (a window of 3,370 entries is 14 a thread).
+  int live = 0;
+  if (staged) {
+    float v[SEL_TILE / SELECT_THREADS];
+#pragma unroll
+    for (int j = 0; j < SEL_TILE / SELECT_THREADS; ++j) {
+      const int i = tid + j * SELECT_THREADS;
+      v[j] = i < len ? w[i] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < SEL_TILE / SELECT_THREADS; ++j) {
+      const int i = tid + j * SELECT_THREADS;
+      const unsigned int k = sel_value_key(v[j]);
+      if (i < len) keys[i] = k;
+      live += k != 0u;
+    }
+  } else {
+    for (long long i = tid; i < len; i += SELECT_THREADS)
+      live += sel_value_key(w[i]) != 0u;
+  }
+  hist[0][tid] = 0;
+  if (tid == 0) n_above = 0;
+  sel_scan(live, part[scans++ & 1], live);  // its barrier publishes all three
+  const int n_win = live < k2 ? live : k2;
+
+  // 2. the k2-th largest key's prefix; tie_need of the keys that share it
+  // are winners, out of tie_count
+  unsigned int prefix = 0u, mask = 0u;
+  int tie_need = n_win, tie_count = live;
+  if (live > k2) {
+    int rem = k2;
+    for (int pass = 0, shift = 24; shift >= 0; ++pass, shift -= 8) {
+      int* h = hist[pass & 1];
+      for (long long i = tid; i < len; i += SELECT_THREADS) {
+        const unsigned int k = key_at(i);
+        if (k != 0u && (k & mask) == prefix) atomicAdd(&h[(k >> shift) & 0xFF], 1);
+      }
+      // the next pass's histogram, last read before the previous barrier
+      hist[(pass + 1) & 1][tid] = 0;
+      __syncthreads();
+      const int bin = SEL_BINS - 1 - tid;  // thread 0 holds the top bin
+      const int c = h[bin];
+      int total;
+      const int incl = sel_scan(c, part[scans++ & 1], total);
+      if (incl - c < rem && incl >= rem) {
+        pick[0] = bin;
+        pick[1] = incl - c;
+        pick[2] = c;
+      }
+      __syncthreads();
+      rem -= pick[1];
+      tie_count = pick[2];
+      prefix |= static_cast<unsigned int>(pick[0]) << shift;
+      mask |= 0xFFu << shift;
+      if (tie_count == rem) break;  // the bin is taken whole
+    }
+    tie_need = rem;
+  }
+
+  // 3. the winners: every key above the prefix, and the keys that share it,
+  // all of them or (a tie cut, once all 32 bits are fixed) the first
+  // tie_need in window order
+  const bool cut = tie_count > tie_need;
+  for (long long i = tid; i < len; i += SELECT_THREADS) {
+    const unsigned int k = key_at(i);
+    if (k == 0u) continue;
+    const unsigned int m = k & mask;
+    if (m > prefix || (!cut && m == prefix))
+      win[atomicAdd(&n_above, 1)] = sel_winner(k, i);
+  }
+  if (cut) {
+    const int base = n_win - tie_need;  // the slots after the keys above
+    int taken = 0;
+    for (long long i0 = 0; i0 < len && taken < tie_need; i0 += SELECT_THREADS) {
+      const long long i = i0 + tid;
+      const int f = i < len && key_at(i) == prefix;
+      int total;
+      const int r = taken + sel_scan(f, part[scans++ & 1], total) - 1;
+      if (f && r < tie_need) win[base + r] = sel_winner(prefix, i);
+      taken += total;
+    }
+  }
+  __syncthreads();
+
+  // 4. rank each winner by (value desc, index asc); zeros past them
+  const long long row = static_cast<long long>(q) * k2;
+  for (int j = tid; j < k2; j += SELECT_THREADS) {
+    if (j < n_win) {
+      const unsigned long long kj = win[j];
+      int rank = 0;
+      for (int m = 0; m < n_win; ++m) rank += win[m] > kj;
+      vals[row + rank] = __uint_as_float(static_cast<unsigned int>(kj >> 32));
+      gidx[row + rank] =
+          s + (0xFFFFFFFFu - static_cast<unsigned int>(kj & 0xFFFFFFFFull));
+    } else {
+      vals[row + j] = 0.f;
+      gidx[row + j] = 0;
+    }
+  }
+}
+
 // P1-P5, the lowering probes of benchmarks/mosaic_probe.py: five tiny
 // kernels that checked which operations Mosaic could lower for the unified
 // kernel (K5) on the TPU. On Hopper each is a plain kernel over f32 tensors,
@@ -1483,6 +1678,88 @@ __global__ void window_op_kernel(const int* __restrict__ wq,
   for (int w = 0; w < W; ++w)
     if (sq[w] == q && sd[w] == t) acc += sv[w];
   o[(long long)q * T + t] = acc;
+}
+
+// P3 as callers get it. The kernel above has every output cell walk all W
+// entries: 67M compares at the probe's shapes (Q 128, T 1024, W 512) to
+// place 512 values, where the job is bound by the bytes of the 512 KB
+// output. Here one block owns a band of output rows (one row of 1,024 cells
+// at the probe's shapes, so 128 blocks): it zero-fills the band with 16-byte
+// stores, compacts the entries that fall in the band into shared memory in
+// entry order (each thread counts four consecutive entries, one block scan
+// places them), and the thread holding a cell's first entry sums that
+// cell's entries in entry order and stores the sum once. Work per block is
+// O(W) plus the band's entries squared, not O(W) per cell.
+constexpr int WIN_THREADS = 256;
+constexpr int WIN_PER_THREAD = WIN_MAX / WIN_THREADS;
+constexpr int WIN_BAND_CELLS = 1024;  // output cells a block zero-fills, at least
+
+__global__ void __launch_bounds__(WIN_THREADS)
+window_band_kernel(const int* __restrict__ wq, const float* __restrict__ wv,
+                   const int* __restrict__ wd, float* __restrict__ o, int Q,
+                   int T, int W, int rows) {
+  __shared__ long long cell[WIN_MAX];
+  __shared__ float val[WIN_MAX];
+  __shared__ int part[WIN_THREADS / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int r0 = blockIdx.x * rows;
+  const int r1 = r0 + rows < Q ? r0 + rows : Q;
+  // zero-fill cells [z0, z1): scalar head and tail, 16-byte stores between
+  const long long z0 = static_cast<long long>(r0) * T;
+  const long long z1 = static_cast<long long>(r1) * T;
+  const long long a0 = ((z0 + 3) & ~3LL) < z1 ? ((z0 + 3) & ~3LL) : z1;
+  const long long a1 = a0 + ((z1 - a0) & ~3LL);
+  if (tid < a0 - z0) o[z0 + tid] = 0.f;
+  if (tid < z1 - a1) o[a1 + tid] = 0.f;
+  for (long long i = a0 / 4 + tid; i < a1 / 4; i += WIN_THREADS)
+    reinterpret_cast<float4*>(o)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the band's entries, in entry order: thread t holds entries 4t .. 4t + 3
+  auto in_band = [&](int w) {
+    if (w >= W) return false;
+    const int q = wq[w];
+    const int d = wd[w];
+    return q >= r0 && q < r1 && d >= 0 && d < T;
+  };
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < WIN_PER_THREAD; ++j) c += in_band(tid * WIN_PER_THREAD + j);
+  int pos = c;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, pos, off);
+    if (lane >= off) pos += x;
+  }
+  if (lane == 31) part[warp] = pos;
+  __syncthreads();
+  int m = 0;
+#pragma unroll
+  for (int x = 0; x < WIN_THREADS / 32; ++x) {
+    pos += x < warp ? part[x] : 0;
+    m += part[x];
+  }
+  pos -= c;  // exclusive
+#pragma unroll
+  for (int j = 0; j < WIN_PER_THREAD; ++j) {
+    const int w = tid * WIN_PER_THREAD + j;
+    if (in_band(w)) {
+      cell[pos] = static_cast<long long>(wq[w]) * T + wd[w];
+      val[pos] = wv[w];
+      ++pos;
+    }
+  }
+  __syncthreads();  // the band list, and the zero fill before the sums
+  for (int j = tid; j < m; j += WIN_THREADS) {
+    const long long cj = cell[j];
+    bool first = true;
+    for (int i = 0; i < j && first; ++i) first = cell[i] != cj;
+    if (!first) continue;
+    float acc = 0.f;
+    for (int i = j; i < m; ++i)
+      if (cell[i] == cj) acc += val[i];
+    o[cj] = acc;
+  }
 }
 
 // P4: the reshape (4, 128, Q) -> (512, Q), which in row-major memory is a
@@ -1659,12 +1936,23 @@ extern "C" int ns_gather_rows(const int* ids, const void* table, int in_bf16,
   return static_cast<int>(cudaGetLastError());
 }
 
+// first != 0 launches the first port's per_query_topk_kernel, which writes
+// only the live slots (the caller zero-fills), so that one process can time
+// the two on the same operands; callers get per_query_select_kernel, which
+// writes every slot and takes k2 <= SEL_K2_MAX.
 extern "C" int ns_per_query_topk(const float* scores, const long long* bounds,
                                  long long n, int n_queries, int k2,
-                                 float* vals, long long* gidx, void* stream) {
-  per_query_topk_kernel<<<n_queries, SEL_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      scores, bounds, n, k2, vals, gidx);
+                                 float* vals, long long* gidx, int first,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_queries <= 0 || k2 < 1 || (!first && k2 > SEL_K2_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (first)
+    per_query_topk_kernel<<<n_queries, SEL_THREADS, 0, s>>>(scores, bounds, n,
+                                                            k2, vals, gidx);
+  else
+    per_query_select_kernel<<<n_queries, SELECT_THREADS, 0, s>>>(
+        scores, bounds, n, k2, vals, gidx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1686,11 +1974,22 @@ extern "C" int ns_probe_row_copy(const float* e, const int* off, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// first != 0 launches the first port's window_op_kernel (one thread per
+// cell) in place of window_band_kernel, for the A/B.
 extern "C" int ns_probe_window_op(const int* wq, const float* wv, const int* wd,
-                                  float* o, int Q, int T, int W, void* stream) {
-  if (W > WIN_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  window_op_kernel<<<probe_tiles(Q, T), dim3(PTS, PTS), 0,
-                     static_cast<cudaStream_t>(stream)>>>(wq, wv, wd, o, Q, T, W);
+                                  float* o, int Q, int T, int W, int first,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W > WIN_MAX || Q <= 0 || T <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (first) {
+    window_op_kernel<<<probe_tiles(Q, T), dim3(PTS, PTS), 0, s>>>(wq, wv, wd, o,
+                                                                 Q, T, W);
+  } else {
+    const int rows = (WIN_BAND_CELLS + T - 1) / T;
+    window_band_kernel<<<(Q + rows - 1) / rows, WIN_THREADS, 0, s>>>(
+        wq, wv, wd, o, Q, T, W, rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,10 @@ The wrapper runs the plain PyTorch version for CPU tensors (the CPU tests)
 and launches the kernel (``ns_per_query_topk`` in
 ``nextsearch_tpu_torch/csrc/heavy.cu``, built by ops/cuda_build.py) for CUDA
 tensors, raising if the launch fails; it counts
-launches in ``per_query_topk.launches``.
+launches in ``per_query_topk.launches``. The kernel is a one-pass threshold
+select (a radix select of the k2-th largest value, then the ties in window
+order); ``first=True`` launches the first port's k2-round kernel instead,
+only so that one process can time the two on the same operands.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import torch
 
 from .bm25 import f32_order_key
 from .cuda_build import check_rc, library, stream
+
+
+K2_MAX = 1024  # winners the kernel holds in shared memory (the TPU kernel's: 128)
 
 
 def reset_launch_counts() -> None:
@@ -51,7 +57,8 @@ def per_query_topk_ref(scores: torch.Tensor, bounds: torch.Tensor, k2: int):
     return vals, gidx
 
 
-def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int):
+def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int, *,
+                   first: bool = False):
     """Each query's top-k2 entries of its window of a flat array.
 
     scores f32 [N]; bounds int [Q+1], query q's window is
@@ -60,15 +67,16 @@ def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int):
     f32 [Q, k2], gidx int64 [Q, k2]): the k2 largest positive values, exact,
     in descending order with the lowest flat index first among equal values,
     and their global flat indices; slots past a query's live entries (value
-    <= 0) are 0 / 0. Any window length gives the exact result.
+    <= 0) are 0 / 0. Any window length gives the exact result; 1 <= k2 <=
+    K2_MAX.
     """
     if scores.dim() != 1 or scores.dtype != torch.float32:
         raise TypeError("per_query_topk: scores must be 1D float32")
     if bounds.dim() != 1 or bounds.numel() < 1 or \
             bounds.dtype not in (torch.int32, torch.int64):
         raise TypeError("per_query_topk: bounds must be a 1D integer tensor")
-    if k2 < 1:
-        raise ValueError(f"per_query_topk: k2={k2}")
+    if not 1 <= k2 <= K2_MAX:
+        raise ValueError(f"per_query_topk: k2={k2} outside [1, {K2_MAX}]")
     if scores.device != bounds.device:
         raise ValueError("per_query_topk: scores and bounds on different devices")
     if scores.device.type == "cpu":
@@ -80,14 +88,16 @@ def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int):
     q_count = bounds.numel() - 1
     scores = scores.contiguous()
     b64 = bounds.to(torch.int64).contiguous()
-    vals = torch.zeros((q_count, k2), dtype=torch.float32, device=dev)
-    gidx = torch.zeros((q_count, k2), dtype=torch.int64, device=dev)
+    # the first kernel writes only the live slots
+    alloc = torch.zeros if first else torch.empty
+    vals = alloc((q_count, k2), dtype=torch.float32, device=dev)
+    gidx = alloc((q_count, k2), dtype=torch.int64, device=dev)
     if q_count == 0:
         return vals, gidx
     with torch.cuda.device(dev):
         rc = lib.ns_per_query_topk(
             scores.data_ptr(), b64.data_ptr(), scores.numel(), q_count, k2,
-            vals.data_ptr(), gidx.data_ptr(), stream(dev),
+            vals.data_ptr(), gidx.data_ptr(), int(first), stream(dev),
         )
     check_rc(rc, "per_query_topk")
     per_query_topk.launches += 1

@@ -13,8 +13,10 @@ the same order); on dense mixes with bf16 operands (the tensor-core kernel)
 H and smax within (ND / 8 + 8) * 2^-23 relative, cnt and H > 0 still bit for
 bit; P6 as K6, its reduced smax within 1e-6 relative; P1
 within 2 * 512 * 2^-24 relative (two orders of a 512-term positive sum),
-P3 within 1e-6 (a few entries per cell at most), P2, P4 and P5 bit for
-bit; K3's two copy kernels bit for bit, and P1's tiled kernel at ragged
+P3 within 1e-6 (a few entries per cell at most) and, in its own test,
+both of its kernels bit for bit against np.add.at; K4's threshold select
+and its first kernel on cases aimed at the select's steps; P2, P4 and P5
+bit for bit; K3's two copy kernels bit for bit, and P1's tiled kernel at ragged
 shapes. The whole TorchIndex on
 the card, on the packed, unified and windowed-selection paths and with bf16
 dense rows, and in the fused, exact and fast modes, is held against the same
@@ -158,23 +160,121 @@ def _windows(q, w_max, seed, dev):
     return scores.to(dev), bounds.to(dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("q,k2,w_max", [
+def _joined(wins, dev):
+    """One flat array of the given windows (float32 numpy arrays) and its
+    int64 bounds."""
+    lens = [len(w) for w in wins]
+    bounds = torch.zeros(len(wins) + 1, dtype=torch.int64)
+    bounds[1:] = torch.cumsum(torch.tensor(lens), 0)
+    flat = np.concatenate(wins).astype(np.float32) if sum(lens) else \
+        np.zeros(1, np.float32)
+    return torch.from_numpy(flat).to(dev), bounds.to(dev)
+
+
+def _threshold_case(case, k2, dev):
+    """Windows aimed at the threshold select's steps: (scores, bounds)."""
+    rng = np.random.default_rng(k2)
+    f32 = np.float32
+    if case == "repeat_long":
+        # one value repeated past the 4,096-entry shared tile, and the same
+        # with a few larger values at random places
+        a = np.full(10_000, f32(0.75))
+        b = np.full(6_000, f32(0.75))
+        b[rng.choice(6_000, 7, replace=False)] = f32(2.0)
+        c = np.full(4_096, f32(0.75))  # exactly the tile
+        return _joined([a, b, c], dev)
+    if case == "straddle":
+        # the k2-th slot falls inside a run of equal values, in windows
+        # staged and not; values that agree in their top 24 bits too
+        wins = []
+        for n in (300, 3_000, 9_000):
+            w = np.zeros(n, np.float32)
+            pos = rng.permutation(n)
+            top = k2 // 2
+            w[pos[:top]] = rng.uniform(3.0, 4.0, top).astype(f32)
+            w[pos[top:top + k2]] = f32(2.0)  # the run across slot k2
+            near = np.nextafter(f32(1.0), f32(2.0)) + np.arange(40, dtype=f32) \
+                * np.finfo(f32).eps
+            w[pos[top + k2:top + k2 + 40]] = near.astype(f32)
+            wins.append(w)
+            # the run straddles the k2-th slot among last-byte neighbours
+            w2 = np.zeros(n, np.float32)
+            base = np.float32(1.5).view(np.uint32)
+            bits = base + rng.integers(0, 3, n).astype(np.uint32)
+            w2[:] = bits.view(np.float32)
+            w2[rng.random(n) < 0.2] = 0.0
+            wins.append(w2)
+        return _joined(wins, dev)
+    if case == "live_count":
+        # live counts exactly k2, k2 - 1 and k2 + 1, dead slots between
+        wins = []
+        for live in (k2, k2 - 1, k2 + 1):
+            w = np.zeros(3 * k2 + 5, np.float32)
+            at = rng.choice(len(w), live, replace=False)
+            w[at] = rng.integers(1, 6, live).astype(f32)  # ties among them
+            wins.append(w)
+        return _joined(wins, dev)
+    if case == "specials":
+        # NaN, -0.0, negatives and subnormals: only positive values live,
+        # positive subnormals among them
+        sub = np.float32(1e-40)
+        w = np.array([np.nan, -0.0, 0.0, -1.0, -sub, sub, 2 * sub, sub, 1.0,
+                      3.0, -np.inf, np.nan, 0.5, sub], np.float32)
+        big = rng.uniform(-1, 1, 5_000).astype(f32)
+        big[rng.random(5_000) < 0.1] = np.nan
+        big[rng.random(5_000) < 0.1] = -0.0
+        tiny = rng.random(5_000) < 0.2
+        big[tiny] = (rng.integers(-3, 4, int(tiny.sum())) * 1e-40).astype(f32)
+        few = np.array([sub, -sub, np.nan, -0.0], np.float32)
+        # the k2-th largest among tied subnormals
+        low = (rng.integers(-3, 4, 600) * 1e-40).astype(f32)
+        low[rng.choice(600, 3, replace=False)] = f32(0.25)
+        return _joined([w, big, few, np.tile(w, 20), low], dev)
+    if case == "empty_and_long":
+        # windows of 0 and of 40,000 entries in one launch
+        long = rng.integers(0, 50, 40_000).astype(f32) / 8
+        long[rng.random(40_000) < 0.3] = 0.0
+        mid = rng.random(500).astype(f32)
+        return _joined([np.zeros(0, np.float32), long, np.zeros(0, np.float32),
+                        mid, long[::-1].copy(), np.zeros(0, np.float32)], dev)
+    raise ValueError(case)
+
+
+K4_CASES = [
+    # (q, k2, w_max) of random windows, as before
     (512, 32, 8192),     # serving-like
     (64, 32, 40000),     # windows past the TPU kernel's 32768 bound
     (100, 5, 3000),
     (7, 128, 300),       # k2 above the live count
-])
-def test_per_query_topk_matches_plain(cuda, q, k2, w_max):
+    # the threshold select's steps
+    ("repeat_long", 32), ("straddle", 32), ("straddle", 128),
+    ("live_count", 32), ("live_count", 128), ("specials", 32),
+    ("specials", 5), ("empty_and_long", 32), ("empty_and_long", 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES, ids=[
+    "-".join(map(str, c)) for c in K4_CASES])
+def test_per_query_topk_matches_plain(cuda, case):
+    """Both kernels (the threshold select that callers get, and the first
+    port's behind first=True) bit-equal to the plain version."""
     from nextsearch_tpu_torch.ops import select_kernels as sk
 
-    scores, bounds = _windows(q, w_max, q + k2, cuda)
-    n0 = sk.per_query_topk.launches
-    v, g = sk.per_query_topk(scores, bounds, k2)
-    assert sk.per_query_topk.launches == n0 + 1
+    if len(case) == 3:
+        q, k2, w_max = case
+        scores, bounds = _windows(q, w_max, q + k2, cuda)
+    else:
+        name, k2 = case
+        scores, bounds = _threshold_case(name, k2, cuda)
     rv, rg = sk.per_query_topk_ref(scores, bounds, k2)
-    torch.cuda.synchronize()
-    assert torch.equal(v, rv) and torch.equal(g, rg)
+    for first in (False, True):
+        n0 = sk.per_query_topk.launches
+        v, g = sk.per_query_topk(scores, bounds, k2, first=first)
+        assert sk.per_query_topk.launches == n0 + 1
+        torch.cuda.synchronize()
+        assert torch.equal(v.view(torch.int32), rv.view(torch.int32)), first
+        assert torch.equal(g, rg), first
     assert bool((v > 0).any())
 
 
@@ -326,6 +426,53 @@ def test_probe_kernels_p1_to_p5_match_plain(cuda):
         assert torch.equal(pk.transpose(t), pk.transpose_ref(t))
     assert all(f.launches > 0 for f in (pk.nt_dot, pk.row_copy, pk.window_op,
                                         pk.reshape_copy, pk.transpose))
+
+
+def _window_case(case, g):
+    q, tile, w = 128, 1024, 512
+    wq = torch.randint(0, q, (w,), generator=g)
+    wd = torch.randint(0, tile, (w,), generator=g)
+    if case == "four_in_a_cell":
+        wq[:4], wd[:4] = 7, 9
+    elif case == "three_cells":
+        pick = torch.randint(0, 3, (w,), generator=g)
+        wq = torch.tensor([5, 5, 127])[pick]
+        wd = torch.tensor([0, 1023, 512])[pick]
+    elif case == "last_row":
+        wq[:] = q - 1
+    wv = torch.rand(w, generator=g) + 0.5
+    return wq, wv, wd, q, tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["four_in_a_cell", "three_cells", "last_row"])
+def test_window_op_matches_entry_order_sum(cuda, case):
+    """P3's two kernels (the band kernel that callers get, the first port's
+    behind first=True) bit-equal to np.add.at, the entries of a cell added
+    in entry order into 0. Against the plain version (index_put_ with
+    accumulate): bit for bit where no cell holds 32 entries; past that
+    PyTorch sums a cell's entries a warp at a time, so within 512 * 2^-24
+    relative (two orders of a 512-term positive sum)."""
+    from nextsearch_tpu_torch.ops import probe_kernels as pk
+
+    wq, wv, wd, q, tile = _window_case(case, torch.Generator().manual_seed(11))
+    want = np.zeros((q, tile), np.float32)
+    np.add.at(want, (wq.numpy(), wd.numpy()), wv.numpy())
+    want = torch.from_numpy(want).to(cuda)
+    wq, wv, wd = wq.to(cuda), wv.to(cuda), wd.to(cuda)
+    plain = pk.window_op_ref(wq, wv, wd, q=q, tile=tile)
+    crowded = int(torch.bincount(wq * tile + wd).max()) >= 32
+    for first in (False, True):
+        n0 = pk.window_op.launches
+        got = pk.window_op(wq, wv, wd, q=q, tile=tile, first=first)
+        torch.cuda.synchronize()
+        assert pk.window_op.launches == n0 + 1
+        assert torch.equal(got, want), first
+        if crowded:
+            torch.testing.assert_close(got, plain, rtol=512 * 2.0 ** -24, atol=0)
+        else:
+            assert torch.equal(got, plain), first
+    assert crowded == (case == "three_cells")
 
 
 @pytest.mark.cuda

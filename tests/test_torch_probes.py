@@ -158,6 +158,27 @@ def test_kernel_probe_script_passes_on_plain_versions():
     assert pk.nt_dot.launches == 0  # CPU tensors launch nothing
 
 
+def test_chip_smoke_probe_bounds_count_outputs():
+    """chip_smoke's P1-P5 bounds count each input read once and each output
+    written once: inputs (one row of e for P2) plus the probe's output."""
+    import chip_smoke
+    from nextsearch_tpu_torch.benchmarks import kernel_probe
+
+    args = kernel_probe.inputs(CPU)
+    lib = chip_smoke.probe_library(args)
+    nb = chip_smoke.nbytes
+    e, off = args["row_copy"]
+    read = {name: nb(*ts) for name, ts in args.items()}
+    read["row_copy"] = e.shape[1] * 4 + nb(off)
+    calls = kernel_probe.calls(args)
+    assert set(lib) == set(calls)
+    for name, (_label, kern, _plain, _tol) in calls.items():
+        out = kern()
+        assert lib[name][1] == read[name] + nb(out), name
+    assert lib["window_op"][1] == 3 * 512 * 4 + 128 * 1024 * 4
+    assert lib["nt_dot"][2] == 2.0 * 128 * 1024 * 512
+
+
 # ------------------------------------------------------------ P6
 
 
