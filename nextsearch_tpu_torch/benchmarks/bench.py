@@ -254,7 +254,9 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, report_partial)
     main_point = loop.run(secs)
     signal.signal(signal.SIGTERM, signal.SIG_DFL)
-    peak_gb = (torch.cuda.max_memory_allocated(device) / (1 << 30)
+    # reserved, not allocated: a graph pool's blocks are not "allocated"
+    # between replays, though the card holds them
+    peak_gb = (torch.cuda.max_memory_reserved(device) / (1 << 30)
                if device.type == "cuda" else None)
     note(f"mode={mode} batch={batch} depth={depth} iters={main_point['iters']} "
          f"qps={main_point['qps']:.0f}")

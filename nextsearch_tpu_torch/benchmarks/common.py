@@ -24,6 +24,15 @@ def require_cuda(name: str = "cuda") -> torch.device:
     return torch.device(name)
 
 
+def eager_cache(device):
+    """A launch cache that runs every launch eagerly, for the eager side of
+    a graphed/eager A/B on one index: swap it in as the index's
+    launch_cache."""
+    from ..ops.graphs import LaunchCache
+
+    return LaunchCache(device, enabled=False)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -84,23 +93,30 @@ def busy_us(events) -> float:
 
 
 def summarize(trace: dict, n_batches: int, top: int = 10) -> dict:
-    """Per-batch device time and kernel count, the span's idle share, and
-    the largest kernels of one trace."""
+    """Per-batch device time and kernel count, the span's idle share, the
+    largest kernels of one trace, each kernel's launches by full name
+    (kernels_by_name) and the copies and memsets a batch."""
     ev = device_events(trace)
     kern = [e for e in ev if e[3] == "kernel"]
     busy = busy_us(ev)
     span = (max(e[1] for e in ev) - min(e[0] for e in ev)) if ev else 0.0
     by_name: dict = {}
+    count: dict = {}
     for s, e, name, _ in kern:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
+        count[name] = count.get(name, 0) + 1
     largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(
         device_ms_per_batch=busy / 1e3 / n_batches,
         kernel_sum_ms_per_batch=sum(e - s for s, e, *_ in kern) / 1e3 / n_batches,
         kernels_per_batch=len(kern) / n_batches,
+        copies_per_batch=sum(e[3] == "gpu_memcpy" for e in ev) / n_batches,
+        memsets_per_batch=sum(e[3] == "gpu_memset" for e in ev) / n_batches,
         span_ms=span / 1e3,
         idle_share=(1.0 - busy / span) if span else None,
         top_kernels=[(name[:80], t / 1e3 / n_batches) for name, t in largest],
+        kernels_by_name=count,
+        batches=n_batches,
     )
 
 

@@ -3,7 +3,7 @@
 At probe_fusedmm's shapes (Q 512, uc 384, n_slots 999,424, a dense
 torch.rand mix, so every 64-query block takes a dense kernel): K6's fast
 launch on the tensor-core kernel and on the first port's FFMA loop
-(heavy_kernels._DENSE_FFMA), its bf16-up H store and P6's no-epilogue
+(the wrappers' ffma=True), its bf16-up H store and P6's no-epilogue
 variant; then K1 f32-exact over the table widened to f32, on the cp.async-fed
 FFMA kernel and on the older loop, beside the fp32 torch.matmul of the same
 operands. Rows alternate old, new, new, old. Each pair is first compared:
@@ -23,17 +23,11 @@ from __future__ import annotations
 
 import argparse
 import sys
-from unittest import mock
 
 import torch
 
 from ..ops import heavy_kernels as hk
 from . import probe_fusedmm
-
-
-def _launch(fn, ffma: bool):
-    with mock.patch.object(hk, "_DENSE_FFMA", ffma):
-        return fn()
 
 
 def compare(new, old, rtol: float) -> float:
@@ -82,23 +76,25 @@ def run(device, reps: int = 10, **shape) -> dict:
     wide = dense.float()
     torch.backends.cuda.matmul.allow_tf32 = False
     calls = {
-        "K6 fast": lambda: hk.heavy_fused(mix, dense, fast=True),
-        "K6 fast, bf16-up H": lambda: hk.heavy_fused(mix, dense, fast=True,
-                                                     h_dtype=bf16),
-        "P6 no epilogue": lambda: hk.heavy_fused_variant(mix, dense,
-                                                         epilogue=False),
-        "K1 f32 exact": lambda: hk.heavy_fused3(mix, wide, fast=False),
+        "K6 fast": lambda ffma: hk.heavy_fused(mix, dense, fast=True,
+                                              ffma=ffma),
+        "K6 fast, bf16-up H": lambda ffma: hk.heavy_fused(
+            mix, dense, fast=True, h_dtype=bf16, ffma=ffma),
+        "P6 no epilogue": lambda ffma: hk.heavy_fused_variant(
+            mix, dense, epilogue=False, ffma=ffma),
+        "K1 f32 exact": lambda ffma: hk.heavy_fused3(mix, wide, fast=False,
+                                                     ffma=ffma),
     }
     times = {}
     for label, fn in calls.items():
         exact = label == "K1 f32 exact"
-        rel = compare(_launch(fn, False), _launch(fn, True),
+        rel = compare(fn(False), fn(True),
                       0.0 if exact else (uc / 8 + 8) * 2.0 ** -23)
         print(f"[probe] {label}: new against old, max rel diff of H {rel:.3g}",
               flush=True)
         for n, ffma in enumerate((True, False, False, True)):
             key = f"{label}, {'old' if ffma else 'new'} kernel ({n + 1})"
-            times[key] = event_ms(lambda: _launch(fn, ffma), reps)
+            times[key] = event_ms(lambda: fn(ffma), reps)
             row(key, times[key])
     times["torch.matmul fp32"] = event_ms(lambda: torch.matmul(mix, wide), reps)
     row("torch.matmul fp32", times["torch.matmul fp32"])

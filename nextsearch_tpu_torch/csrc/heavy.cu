@@ -1176,10 +1176,27 @@ struct HeavyArgs {
   long long n_slots;
 };
 
+// Opts a kernel into `bytes` (over 48 KB) of dynamic shared memory on the
+// current device. cudaFuncSetAttribute acts on the current device only, so
+// each kernel asks once per device: `asked` holds a bit per device (a
+// device past 63 asks at every launch).
+template <typename Kernel>
+bool size_smem(Kernel kernel, int bytes, unsigned long long* asked) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (*asked & bit)) return true;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess)
+    return false;
+  *asked |= bit;
+  return true;
+}
+
 // The gather kernel, then a dense kernel, over grids of the same tiles; each
 // computes the tiles of its own q-blocks and leaves the others at once. The
 // tensor-core kernel needs more than 48 KB of shared memory, which each of
-// its instantiations asks for once.
+// its instantiations asks for once per device.
 template <bool FAST, typename TabT, bool ENTRIES, int HST, bool VARIANT>
 void launch_heavy(const HeavyArgs& a, cudaStream_t stream) {
   const int n_qblk = (a.Q + BM - 1) / BM;
@@ -1193,14 +1210,8 @@ void launch_heavy(const HeavyArgs& a, cudaStream_t stream) {
   if constexpr (FAST || sizeof(TabT) == 2) {
     if (!a.ffma) {
       auto kernel = heavy_dense_tc_kernel<TabT, ENTRIES, HST, VARIANT>;
-      static bool sized = false;
-      if (!sized) {
-        if (cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 TC_SMEM_BYTES) != cudaSuccess)
-          return;
-        sized = true;
-      }
+      static unsigned long long asked = 0;
+      if (!size_smem(kernel, TC_SMEM_BYTES, &asked)) return;
       kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, TC_SMEM_BYTES, stream>>>(
           a.mixb, a.ND_pad, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots,
           n_qblk);
@@ -1210,14 +1221,8 @@ void launch_heavy(const HeavyArgs& a, cudaStream_t stream) {
   if constexpr (!FAST && sizeof(TabT) == 4 && !VARIANT) {
     if (!a.ffma) {
       auto kernel = heavy_dense_exact_kernel<ENTRIES, HST>;
-      static bool sized = false;
-      if (!sized) {
-        if (cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 EX_SMEM_BYTES) != cudaSuccess)
-          return;
-        sized = true;
-      }
+      static unsigned long long asked = 0;
+      if (!size_smem(kernel, EX_SMEM_BYTES, &asked)) return;
       kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, EX_SMEM_BYTES, stream>>>(
           a.mix, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots, n_qblk);
       return;

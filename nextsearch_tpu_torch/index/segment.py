@@ -24,9 +24,14 @@ dense rows stored bf16 (half the bytes, so twice the rows fit
 dense_max_bytes), one row per (heavy term, segment), a heavy bucket table
 for the v2 rescore, no fast mode and no row top-k shortcut.
 
-Results come back through a non-blocking copy into a pinned host buffer and
-a CUDA event that search_batch_gather waits on, so the host can plan and
-launch the next batch while this one runs.
+The sparse, fused and fast launches go through the index's launch cache
+(ops/graphs.py): one CUDA graph per key of statics and plan shapes,
+captured at its first batch (or by warm_batch, which Engine.warmup calls)
+and replayed after, as the reference's jax.jit programs; exact mode, whose
+windows per term slot are a static that changes every batch, runs
+eagerly. Results come back through a non-blocking copy into a pinned host
+buffer and a CUDA event that search_batch_gather waits on, so the host can
+plan and launch the next batch while this one runs.
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ import torch
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..ops.bm25 import bm25_search_packed, bm25_topk_exact, bm25_topk_fast
 from ..ops.bm25_sparse import (
-    BUCKET_LOG2, LIGHT_BUCKET_LOG2, packed_impl, packed_multi, unified_impl,
+    BUCKET_LOG2, LIGHT_BUCKET_LOG2, packed_impl, packed_multi, two_level_sort2,
+    unified_impl,
 )
+from ..ops.graphs import LaunchCache
 from ..utils.logging import log
 from .builder import SegmentArrays, eager_scores
 from .device_build import (
@@ -93,6 +100,18 @@ def _unpack(out: np.ndarray, K: int):
             out[:, 2 * K].astype(np.int32))
 
 
+def warm_launches(index, queries: Sequence[Sequence[WeightedTerm]],
+                  k: int) -> List[QueryResult]:
+    """search_batch on a TorchIndex or ShardedIndex, and under the fast
+    guard the batch's exact relaunch as well, so that the index's launch
+    caches hold both graphs of the batch's envelope before serving meets a
+    guard trip (Engine.warmup)."""
+    handle = index.search_batch_async(queries, k)
+    if handle[0] == "packedg":
+        handle[5]().wait()
+    return index.search_batch_gather(handle)
+
+
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host plan array on `device`. On a card the copy goes pinned and
     non-blocking: a pageable upload would wait for the batch still running
@@ -132,6 +151,8 @@ class TorchIndex(SparsePlanner):
 
         self.host_only = False
         self.config = config
+        # the sparse, fused and fast launches, one CUDA graph per key
+        self.launch_cache = LaunchCache(self.device)
         self._pins: Dict[str, int] = {}
         self._qpins: Dict[int, Dict[str, int]] = {}
         self._shortcut_memo: Dict = {}
@@ -462,7 +483,11 @@ class TorchIndex(SparsePlanner):
         )
         block = dcfg.posting_block
         dev = self.device
+        tables = dict(post_doc=self.post_doc, post_score=self.post_score)
         if dcfg.mode == "exact":
+            # eager: max_df (host ints, the windows of each term slot) is a
+            # static of the launch and differs from batch to batch, so a
+            # graph per value would be captured for nearly every batch
             out = bm25_topk_exact(
                 self.post_doc, self.post_score, _upload(starts, dev),
                 _upload(dfs, dev), _upload(weights, dev),
@@ -471,10 +496,13 @@ class TorchIndex(SparsePlanner):
             )
         elif dcfg.mode == "fast":
             chunks = self._chunk_plan(starts, dfs, weights, block)
-            out = bm25_topk_fast(
-                self.post_doc, self.post_score,
-                *(_upload(c, dev) for c in chunks),
-                n_slots=self.n_slots, K=K, Q=starts.shape[0], block=block,
+            out = self.launch_cache.run(
+                bm25_topk_fast,
+                {n: _upload(c, dev) for n, c in zip(
+                    ("chunk_start", "chunk_len", "chunk_q", "chunk_w"),
+                    chunks)},
+                dict(tables, n_slots=self.n_slots, K=K, Q=starts.shape[0],
+                     block=block),
             )
         else:  # fused (default): the plan in two uploads, one packed result
             K2 = min(max(2 * K, dcfg.rescore_margin), self.n_slots)
@@ -487,12 +515,14 @@ class TorchIndex(SparsePlanner):
             plan_f32[:Qb, T:] = heavy_mix
             # ids as exact f32 values (< 2^24), as the reference packs them
             plan_f32[Qb, T:] = unique_heavy.astype(np.float32)
-            packed = bm25_search_packed(
-                self.post_doc, self.post_score, self.dense_rows,
-                _upload(plan_ints, dev), _upload(plan_f32, dev),
-                n_slots=self.n_slots, K=K, K2=K2, C=C, block=block,
-                bs_steps=max(2, self.n_slots.bit_length() + 1),
-                scores_bf16=dcfg.scores_bf16,
+            packed = self.launch_cache.run(
+                bm25_search_packed,
+                dict(plan_ints=_upload(plan_ints, dev),
+                     plan_f32=_upload(plan_f32, dev)),
+                dict(tables, dense_rows=self.dense_rows, n_slots=self.n_slots,
+                     K=K, K2=K2, C=C, block=block,
+                     bs_steps=max(2, self.n_slots.bit_length() + 1),
+                     scores_bf16=dcfg.scores_bf16),
             )
             return ("packed", nq, k, K, _HostCopy(packed), None, None)
         return ("pending", nq, k, K, _HostCopy(*out))
@@ -575,39 +605,52 @@ class TorchIndex(SparsePlanner):
                 U = 0
             run, w_max = packed_impl, self._sel_window(plan[1])
         K2 = min(max(2 * K, dcfg.rescore_margin), self.n_slots)
-        plan_dev = _upload(plan, self.device)
+        plan_dev = {"plans" if run is packed_multi else "plan":
+                    _upload(plan, self.device)}
         statics = dict(
+            post_doc=self.post_doc, post_score=self.post_score,
+            dense_rows=self.dense_rows,
+            light_bucket_pos=self.light_bucket_pos,
             n_slots=self.n_slots, K=K, K2=K2, C=C, block=block,
             bs_steps=self._bs_depth, nd=self.n_dense, nl=self.n_light,
             heavy_direct=self._heavy_direct, guard_eps=dcfg.fast_heavy_eps,
             bucket_pos=self.bucket_pos,
         )
-        tables = (self.post_doc, self.post_score, self.dense_rows,
-                  self.light_bucket_pos, plan_dev)
+        cache = self.launch_cache
+        # the switches a launch reads, as statics that key its graph
+        switches = dict(
+            h_bf16=os.environ.get("NEXTSEARCH_H_BF16", "0") == "1",
+            two_level=two_level_sort2(),
+        )
 
         def launch(fh: bool) -> _HostCopy:
             # the exact relaunch under fast mode runs over the full stored
             # table (no compact f32 gather buffer), as in the reference
             uc = use_compact and (fh or not fast)
-            out = run(
-                *tables, U=U if uc else 0, use_compact=uc, fast_heavy=fh,
-                w_max=w_max,
-                h_bf16=os.environ.get("NEXTSEARCH_H_BF16", "0") == "1",
-                lb_log2=self._lb_log2, L2=L2, H2=H2, **statics,
-            )
-            return _HostCopy(out)
+            return _HostCopy(cache.run(run, plan_dev, dict(
+                statics, **switches, U=U if uc else 0, use_compact=uc,
+                fast_heavy=fh, w_max=w_max, lb_log2=self._lb_log2, L2=L2,
+                H2=H2,
+            )))
 
         if unified:
             # light entries folded into the heavy product (K5); a guard
             # trip relaunches the exact full-table packed kernel
-            first = _HostCopy(unified_impl(
-                *tables, U=U, fast_heavy=fast, L2=L2, **statics))
+            first = _HostCopy(cache.run(unified_impl, plan_dev, dict(
+                statics, U=U, fast_heavy=fast, L2=L2)))
         else:
             first = launch(fast)
         if fast:
             return ("packedg", nq, k, K, first, lambda: launch(False), perm,
                     queries, fills)
         return ("packed", nq, k, K, first, perm, fills)
+
+    @property
+    def launch_caches(self) -> Dict[torch.device, LaunchCache]:
+        """{device: launch cache}, as ShardedIndex has one per device."""
+        return {self.launch_cache.device: self.launch_cache}
+
+    warm_batch = warm_launches
 
     def search_batch_gather(self, handle) -> List[QueryResult]:
         """Wait for a search_batch_async launch and unpack its results."""

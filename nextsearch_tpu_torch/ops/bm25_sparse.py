@@ -36,7 +36,10 @@ them into FMAs).
 (nextsearch_tpu_torch/benchmarks/profile_serving.py); its results are
 wrong by design. NEXTSEARCH_SORT2_2LEVEL=1 takes the reference's 2-level
 reduction of the guarded fast path's selection sort
-(``topk_quantized_reduce``), off by default as there.
+(``topk_quantized_reduce``), off by default as there. The launch functions
+take it as ``two_level``; None reads the variable at the call, and the
+index's launches pass it read, so that it keys their graphs
+(ops/graphs.py).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import os
 import torch
 
 from .bm25 import PAD_DOC, canonical_sort, expand_chunks, f32_order_key
+from .cuda_build import counted
 from .heavy_kernels import (
     CSUB, TILE, gather_bf16_rows, gather_rows, gather_rows_bf16, heavy_fused3,
     unified_fused,
@@ -195,11 +199,17 @@ def topk_quantized_reduce(comp, sq, Q: int, k2: int, sent):
     return torch.cat([red, ex.reshape(-1)])
 
 
-topk_quantized_reduce.calls = 0  # launches that took the 2-level branch
+# launches that took the 2-level branch
+counted(topk_quantized_reduce, attr="calls")
+
+
+def two_level_sort2() -> bool:
+    """The NEXTSEARCH_SORT2_2LEVEL switch, as a launch's two_level."""
+    return os.environ.get("NEXTSEARCH_SORT2_2LEVEL", "0") == "1"
 
 
 def per_query_topk_flat(sq, score, payload, Q: int, k2: int, *,
-                        quantized: bool = False):
+                        quantized: bool = False, two_level=None):
     """Top-k2 payloads per query by (score desc, payload asc) from a flat
     q-sorted list; returns (docs, vals) with vals 0 / docs PAD_DOC at dead
     slots. Port of per_query_topk_flat.
@@ -207,7 +217,9 @@ def per_query_topk_flat(sq, score, payload, Q: int, k2: int, *,
     quantized=False keeps full f32 keys (the exact path). quantized=True
     (guarded fast path only) keeps the reference's packed uint32 key, q in
     the high bits over the top (32 - qbits) bits of the score pattern, and
-    returns each key's dequantized floor, which feeds the guard's tau."""
+    returns each key's dequantized floor, which feeds the guard's tau.
+    two_level (None: two_level_sort2()) lets a long quantized stream take
+    the 2-level reduction first (topk_quantized_reduce)."""
     n = sq.shape[0]
     sq = sq.to(torch.int64)
     live_sc = score > 0
@@ -226,7 +238,7 @@ def per_query_topk_flat(sq, score, payload, Q: int, k2: int, *,
             n >= 32768
             and n % 128 == 0
             and k2 <= 128
-            and os.environ.get("NEXTSEARCH_SORT2_2LEVEL", "0") == "1"
+            and (two_level_sort2() if two_level is None else two_level)
         ):
             sent = (((Q << shift) | max_sc) << 31) | PAD_DOC
             comp = topk_quantized_reduce(comp, sq, Q, k2, sent)
@@ -548,7 +560,7 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
                 fast_heavy: bool = False, guard_eps: float = 2e-3,
                 w_max: int = 0, h_bf16: bool = False,
                 lb_log2: int = LIGHT_BUCKET_LOG2, L2: int = 0, H2: int = 0,
-                prof_skip: tuple = (), bucket_pos=None):
+                prof_skip: tuple = (), bucket_pos=None, two_level=None):
     """One sparse batch; returns packed f32 [Q, 2K+1] (vals | doc slots |
     found), plus the guard column ([Q, 2K+2]) when fast_heavy.
 
@@ -563,6 +575,7 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
     guarded one-pass mode: guard column 0 means the caller must relaunch
     exactly (TorchIndex does). h_bf16 under fast_heavy stores H as bf16
     rounded up, which every reader widens back to f32 exactly.
+    two_level: per_query_topk_flat's, for the quantized selection sort.
     heavy_direct=False (bf16 dense rows) rescores with exact_rescore_v2
     over bucket_pos. prof_skip names stages of PROF_STAGES to drop (stage
     attribution only: the results are wrong); each dropped stage yields
@@ -641,6 +654,7 @@ def packed_impl(post_doc, post_score, dense_rows, light_bucket_pos, plan, *,
         else:
             ldocs, lvals = per_query_topk_flat(
                 sq, sel_score, sd, Q, K2, quantized=fast_heavy,
+                two_level=two_level,
             )
     if "cand_heavy" in prof_skip:
         hdocs = torch.full((Q, K2), PAD_DOC, dtype=torch.int64, device=dev)

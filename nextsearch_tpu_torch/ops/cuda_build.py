@@ -112,6 +112,19 @@ def build() -> dict:
     return dict(BUILD_INFO)
 
 
+# Every kernel wrapper's launch counter, as (object, attribute): each module
+# of wrappers registers its own with counted(). A graph replay
+# (ops/graphs.py) advances each by what its capture recorded.
+COUNTERS: list = []
+
+
+def counted(*objs, attr: str = "launches") -> None:
+    """Register the launch counters objs.<attr>, each starting at 0."""
+    for obj in objs:
+        setattr(obj, attr, 0)
+        COUNTERS.append((obj, attr))
+
+
 def check_rc(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")

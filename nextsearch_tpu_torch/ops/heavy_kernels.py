@@ -27,23 +27,12 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import check_aligned, check_rc, library, stream
+from .cuda_build import check_aligned, check_rc, counted, library, stream
 
 TILE = 2048  # docs per count tile (cnt rows)
 CSUB = 128  # docs per selection sub-block (smax rows)
 _CPT = TILE // CSUB
 GATHER_CUT = 32  # csrc/heavy.cu's GATHER_CUT: the longest list gathered over
-# The product launches' list capacity: None takes min(ND, GATHER_CUT); the
-# card tests set 0 to send every block with a nonzero mix entry down the
-# dense product, and compare the two paths.
-_LIST_CAP = None
-# True sends every dense block down the first port's FFMA loop
-# (heavy_dense_kernel) in place of the tensor-core kernel (bf16 operands) or
-# the cp.async-fed FFMA kernel (f32-exact); it is passed to the C entry
-# points as an argument. The card tests and chip_smoke.py time and compare
-# the kernels on the same operands with it. Nothing sets it when a launch
-# fails.
-_DENSE_FFMA = False
 MIX_PAD = 32  # csrc/heavy.cu's TC_BK: the bf16 mix's columns pad to this
 
 
@@ -54,8 +43,7 @@ def _pads(n_slots: int):
 
 
 def reset_launch_counts() -> None:
-    for fn in (heavy_fused3, heavy_fused, heavy_fused_variant, unified_fused,
-               gather_rows, gather_rows_bf16, gather_bf16_rows, mix_lists):
+    for fn in _WRAPPERS:
         fn.launches = 0
 
 
@@ -142,16 +130,24 @@ def mix_lists(mix: torch.Tensor, round_bf16: bool, cap=None, *,
     return (count, cols, vals, mixb) if with_bf16 else (count, cols, vals)
 
 
-def _lists_args(mix, round_bf16: bool):
+def _lists_args(mix, round_bf16: bool, list_cap, ffma: bool):
     """ctypes arguments (count, cols, vals, L, bf16 mix, its columns, the
     FFMA switch) of a product launch, and the tensors, which the caller
     keeps alive until the launch is queued. The bf16 mix goes with every
-    launch that rounds mix (null and 0 otherwise)."""
-    lists = mix_lists(mix, round_bf16, _LIST_CAP, with_bf16=round_bf16)
+    launch that rounds mix (null and 0 otherwise).
+
+    Every product wrapper takes two switches for the card tests and the
+    probes, which compare and time its paths on the same operands:
+    list_cap, the lists' capacity (None takes min(ND, GATHER_CUT); 0 sends
+    every block with a nonzero mix entry down the dense product), and
+    ffma=True, which sends every dense block down the first port's FFMA
+    loop (heavy_dense_kernel) in place of the tensor-core kernel (bf16
+    operands) or the cp.async-fed FFMA kernel (f32-exact)."""
+    lists = mix_lists(mix, round_bf16, list_cap, with_bf16=round_bf16)
     mixb = lists[3] if round_bf16 else None
     return (lists[0].data_ptr(), lists[1].data_ptr(), lists[2].data_ptr(),
             lists[1].shape[1], mixb.data_ptr() if round_bf16 else None,
-            mixb.shape[1] if round_bf16 else 0, int(_DENSE_FFMA)), lists
+            mixb.shape[1] if round_bf16 else 0, int(bool(ffma))), lists
 
 
 # ---------------------------------------------------------------- K1
@@ -258,7 +254,7 @@ def _rounds_mix(table, fast: bool) -> bool:
     return bool(fast) or table.dtype == torch.bfloat16
 
 
-def _launch_fused(fn, name, mix, table, fast, h_dtype):
+def _launch_fused(fn, name, mix, table, fast, h_dtype, list_cap, ffma):
     """One ns_heavy_fused3 launch (K1 or K6) after its mix_lists pre-pass,
     counted on fn."""
     _check_heavy_operands(name, mix, table)
@@ -269,7 +265,8 @@ def _launch_fused(fn, name, mix, table, fast, h_dtype):
     lib = library()
     dev = table.device
     (q, nd), n_slots = mix.shape, table.shape[1]
-    largs, _lists = _lists_args(mix, _rounds_mix(table, fast))
+    largs, _lists = _lists_args(mix, _rounds_mix(table, fast), list_cap,
+                                ffma)
     h, smax, cnt = _heavy_outputs(q, n_slots, dev, h_dtype)
     with torch.cuda.device(dev):
         rc = lib.ns_heavy_fused3(
@@ -285,7 +282,7 @@ def _launch_fused(fn, name, mix, table, fast, h_dtype):
 
 
 def heavy_fused3(mix: torch.Tensor, table: torch.Tensor, *, fast: bool,
-                 h_dtype=torch.float32):
+                 h_dtype=torch.float32, list_cap=None, ffma: bool = False):
     """H = mix @ table, per-128-doc sub-block max and per-tile count of H > 0.
 
     Replaces nextsearch_tpu/ops/heavy_pallas.py heavy_fused3_pallas (K1).
@@ -308,10 +305,10 @@ def heavy_fused3(mix: torch.Tensor, table: torch.Tensor, *, fast: bool,
     (ND / 8 + 8) * 2^-23 relative, while H > 0 and cnt are
     the same bit for bit (the operands are non-negative), smax is the max
     of the launch's own H and a bf16 H the rounding of its own f32 sums.
-    K5, K6 and P6 launch it the same way.
+    K5, K6 and P6 launch it the same way. list_cap and ffma: _lists_args.
     """
     return _launch_fused(heavy_fused3, "heavy_fused3", mix, table, fast,
-                         h_dtype)
+                         h_dtype, list_cap, ffma)
 
 
 # ---------------------------------------------------------------- K6
@@ -324,7 +321,7 @@ def heavy_fused_ref(mix: torch.Tensor, dense: torch.Tensor, *, fast: bool,
 
 
 def heavy_fused(mix: torch.Tensor, dense: torch.Tensor, *, fast: bool = False,
-                h_dtype=torch.float32):
+                h_dtype=torch.float32, list_cap=None, ffma: bool = False):
     """The 2D fused heavy kernel: heavy_fused3's function over a 2D table.
 
     Replaces nextsearch_tpu/ops/heavy_pallas.py heavy_fused_pallas (K6). On
@@ -336,7 +333,7 @@ def heavy_fused(mix: torch.Tensor, dense: torch.Tensor, *, fast: bool = False,
     h_dtype (bf16 rounded up), smax [sub_pad, Q], cnt [tiles_pad, Q].
     """
     return _launch_fused(heavy_fused, "heavy_fused", mix, dense, fast,
-                         h_dtype)
+                         h_dtype, list_cap, ffma)
 
 
 # ---------------------------------------------------------------- P6
@@ -371,7 +368,8 @@ def heavy_fused_variant_ref(mix: torch.Tensor, dense: torch.Tensor, *,
 
 def heavy_fused_variant(mix: torch.Tensor, dense: torch.Tensor, *,
                         epilogue: bool = True, store_h: bool = True,
-                        smax_store: bool = True, h_dtype=torch.float32):
+                        smax_store: bool = True, h_dtype=torch.float32,
+                        list_cap=None, ffma: bool = False):
     """K6's one-pass (fast) launch with a part taken out, for timing.
 
     Replaces nextsearch_tpu's benchmarks/probe_fusedmm.py fused_variant
@@ -405,7 +403,7 @@ def heavy_fused_variant(mix: torch.Tensor, dense: torch.Tensor, *,
                            dtype=torch.float32, device=dev)
     else:
         cnt_s = part = cnt
-    largs, _lists = _lists_args(mix, True)
+    largs, _lists = _lists_args(mix, True, list_cap, ffma)
     with torch.cuda.device(dev):
         rc = lib.ns_heavy_variant(
             mix.data_ptr(), dense.data_ptr(),
@@ -454,7 +452,8 @@ def unified_fused_ref(mix, table, sd, sq, sv, *, fast: bool):
 
 
 def unified_fused(mix: torch.Tensor, table: torch.Tensor, sd: torch.Tensor,
-                  sq: torch.Tensor, sv: torch.Tensor, *, fast: bool):
+                  sq: torch.Tensor, sv: torch.Tensor, *, fast: bool,
+                  list_cap=None, ffma: bool = False):
     """Unified totals: mix @ table plus every light entry, and K1's
     per-sub-block max and per-tile positive count of the sum.
 
@@ -488,7 +487,8 @@ def unified_fused(mix: torch.Tensor, table: torch.Tensor, sd: torch.Tensor,
     # entry offsets per 128-doc sub-block (the kernel's grid column)
     edges = torch.arange(0, n_slots + 1, CSUB, dtype=torch.int32, device=dev)
     eoff = torch.searchsorted(sd32, edges).to(torch.int32)
-    largs, _lists = _lists_args(mix, _rounds_mix(table, fast))
+    largs, _lists = _lists_args(mix, _rounds_mix(table, fast), list_cap,
+                                ffma)
     totals, smax, cnt = _heavy_outputs(q, n_slots, dev)
     with torch.cuda.device(dev):
         rc = lib.ns_unified_fused(
@@ -591,4 +591,6 @@ def gather_rows_bf16(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                    gather_rows_bf16)
 
 
-reset_launch_counts()
+_WRAPPERS = (heavy_fused3, heavy_fused, heavy_fused_variant, unified_fused,
+             gather_rows, gather_rows_bf16, gather_bf16_rows, mix_lists)
+counted(*_WRAPPERS)

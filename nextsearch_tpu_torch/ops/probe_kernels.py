@@ -17,11 +17,11 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import check_aligned, check_rc, library, stream
+from .cuda_build import check_aligned, check_rc, counted, library, stream
 
 
 def reset_launch_counts() -> None:
-    for fn in (nt_dot, row_copy, window_op, reshape_copy, transpose):
+    for fn in _WRAPPERS:
         fn.launches = 0
 
 
@@ -184,4 +184,5 @@ def transpose(a: torch.Tensor) -> torch.Tensor:
     return o
 
 
-reset_launch_counts()
+_WRAPPERS = (nt_dot, row_copy, window_op, reshape_copy, transpose)
+counted(*_WRAPPERS)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .bm25 import f32_order_key
-from .cuda_build import check_rc, library, stream
+from .cuda_build import check_rc, counted, library, stream
 
 
 K2_MAX = 1024  # winners the kernel holds in shared memory (the TPU kernel's: 128)
@@ -104,4 +104,4 @@ def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int, *,
     return vals, gidx
 
 
-reset_launch_counts()
+counted(per_query_topk)

@@ -50,7 +50,7 @@ from ..index.planner import (
     _probe_queries_flat,
     _round_up,
 )
-from ..index.segment import _HostCopy, _upload
+from ..index.segment import _HostCopy, _upload, warm_launches
 from ..ops.bm25 import (
     PAD_DOC,
     canonical_sort,
@@ -62,7 +62,8 @@ from ..ops.bm25 import (
     tiled_topk,
     topk_low_index,
 )
-from ..ops.bm25_sparse import LIGHT_BUCKET_LOG2, packed_impl
+from ..ops.bm25_sparse import LIGHT_BUCKET_LOG2, packed_impl, two_level_sort2
+from ..ops.graphs import LaunchCache
 from ..utils.logging import log
 from .mesh import Mesh
 
@@ -95,7 +96,7 @@ def local_step(tab: _Tables, pi: torch.Tensor, *, mode: str, T: int, U: int,
                n_slots: int, K: int, K2: int, C: int, block: int,
                bs_steps: int, nd: int, nl: int, use_compact: bool,
                heavy_direct: bool, fast_heavy: bool, guard_eps: float,
-               L2: int, H2: int, max_df=None):
+               L2: int, H2: int, two_level: bool = False, max_df=None):
     """One (dp group, shard) step of the reference's _sharded_search_fn
     local_step: returns (vals f32 [Qd, k2], local doc slots int [Qd, k2],
     found int [Qd], the fast path's guard column f32 [Qd] or None).
@@ -117,7 +118,7 @@ def local_step(tab: _Tables, pi: torch.Tensor, *, mode: str, T: int, U: int,
             block=block, bs_steps=bs_steps, nd=nd, nl=nl, U=U,
             use_compact=use_compact, heavy_direct=heavy_direct,
             fast_heavy=fast_heavy, guard_eps=guard_eps, L2=L2, H2=H2,
-            bucket_pos=tab.bucket_pos,
+            bucket_pos=tab.bucket_pos, two_level=two_level,
         )
         vals = out[:, :K]
         idx = out[:, K:2 * K].to(torch.int32)
@@ -147,6 +148,16 @@ def local_step(tab: _Tables, pi: torch.Tensor, *, mode: str, T: int, U: int,
         vals, idx = canonical_sort(exact, idx)
     found = (scores > 0).sum(dim=1, dtype=torch.int32)
     return vals, idx, found, guard
+
+
+def graphed_step(pi: torch.Tensor, *, post_doc, post_score, dense_rows,
+                 bucket_pos, light_bucket_pos, **statics):
+    """local_step with the shard's tables given one by one and its guard
+    left out where there is none: the form a launch cache keys (the tables
+    by address) and captures (tensors only)."""
+    out = local_step(_Tables(post_doc, post_score, dense_rows, bucket_pos,
+                             light_bucket_pos), pi, **statics)
+    return out if out[3] is not None else out[:3]
 
 
 def _to_merge(t: torch.Tensor, dst: torch.device) -> torch.Tensor:
@@ -238,6 +249,13 @@ class ShardedIndex:
         self.rescue_ms = 0.0
         self.rescue_trips = 0
         self.relaunches = 0  # batches re-run exactly after a guard trip
+        # one launch cache per distinct mesh device: each (dp group,
+        # shard) step of the sparse and fused modes replays its graph
+        self.launch_caches: Dict[torch.device, LaunchCache] = {}
+        for row in mesh.devices:
+            for d in row:
+                if d not in self.launch_caches:
+                    self.launch_caches[d] = LaunchCache(d)
 
         # Contiguous segment ranges per shard, balanced by doc count.
         n_segs = len(self.segments)
@@ -1002,11 +1020,18 @@ class ShardedIndex:
                 if dev not in plans:
                     plans[dev] = _upload(plan_np, dev)
                 pi = plans[dev][s, g * Qd:(g + 1) * Qd]
+                tab = self._tables[s][dev]
                 with _on(dev):
-                    parts.append(local_step(
-                        self._tables[s][dev], pi, n_slots=self.shard_capacity,
-                        max_df=None if max_df is None else max_df[g][s],
-                        **statics))
+                    if max_df is not None:  # exact mode: host-int windows
+                        parts.append(local_step(
+                            tab, pi, n_slots=self.shard_capacity,
+                            max_df=max_df[g][s], **statics))
+                        continue
+                    out = self.launch_caches[dev].run(
+                        graphed_step, {"pi": pi},
+                        dict(vars(tab), n_slots=self.shard_capacity,
+                             **statics))
+                parts.append(out if len(out) == 4 else (*out, None))
             dst = self.mesh.devices[g][0]
             with _on(dst):
                 outs.append(merge_shards(parts, n_slots=self.shard_capacity,
@@ -1052,7 +1077,8 @@ class ShardedIndex:
                     C=C, block=block, bs_steps=self._bs_depth,
                     nd=self.n_dense, nl=self.n_light, use_compact=uc,
                     heavy_direct=direct, fast_heavy=fh,
-                    guard_eps=dcfg.fast_heavy_eps, L2=L2, H2=H2))
+                    guard_eps=dcfg.fast_heavy_eps, L2=L2, H2=H2,
+                    two_level=two_level_sort2()))
 
             if fast:
                 return ("packedg", nq, k, K, launch(True),
@@ -1077,7 +1103,8 @@ class ShardedIndex:
                 plan_np[:, g * Qd, 4 * T + U:] = unique_heavy[:, g, :]
         # each step's largest df per slot, known here (none read back)
         max_df = [[dfs[s, g * Qd:(g + 1) * Qd].max(axis=0).tolist()
-                   for s in range(S)] for g in range(self.dp)]
+                   for s in range(S)] for g in range(self.dp)] \
+            if mode == "exact" else None
         packed = self._run(
             plan_np, max_df=max_df, mode="exact" if mode == "exact" else "fused",
             T=T, U=U, K=K, K2=K2, C=C, block=block, bs_steps=24,
@@ -1099,6 +1126,8 @@ class ShardedIndex:
             out[j, i] = np.float32(score)
             out[j, K + i] = np.float32(bases[seg_idx] + doc)
         out[j, 2 * K] = np.float32(found)
+
+    warm_batch = warm_launches
 
     def search_batch_gather(self, handle) -> List[QueryResult]:
         """Wait for a search_batch_async launch and unpack its results."""

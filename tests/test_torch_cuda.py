@@ -587,13 +587,12 @@ def _close(got, exp, rtol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["sparse", "dense", "mixed"])
-def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
-                                                           monkeypatch):
+def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind):
     """K1/K6 (f32 and bf16 tables, both modes, f32 and bf16-up H), K5 and
     every P6 switch over one mix, against the same launch with the lists'
     capacity forced to 0 (every block with a nonzero entry takes a dense
     kernel). f32-exact launches (the FFMA loop): bit-equal to the gather.
-    bf16 operands: the FFMA loop (_DENSE_FFMA) is still bit-equal to the
+    bf16 operands: the FFMA loop (ffma=True) is still bit-equal to the
     gather, and the tensor-core kernel agrees with it in cnt and H > 0 bit
     for bit and in H and smax within _tc_rtol; its smax is the max of its
     own H and its bf16 H the rounding of its own f32 H."""
@@ -612,12 +611,7 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
     calls0 = sum(f.launches for f in products)
 
     def forced(call, ffma=False):
-        monkeypatch.setattr(hk, "_LIST_CAP", 0)
-        monkeypatch.setattr(hk, "_DENSE_FFMA", ffma)
-        out = call()
-        monkeypatch.setattr(hk, "_LIST_CAP", None)
-        monkeypatch.setattr(hk, "_DENSE_FFMA", False)
-        return out
+        return call(list_cap=0, ffma=ffma)
 
     def both(call, bf16_operands):
         """(the launch as it routes itself, the launch forced dense)."""
@@ -633,9 +627,7 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
                 assert torch.equal(_bits(a), _bits(c))
             return got, dense
         old = forced(call, ffma=True)
-        monkeypatch.setattr(hk, "_DENSE_FFMA", True)
-        got_old = call()
-        monkeypatch.setattr(hk, "_DENSE_FFMA", False)
+        got_old = call(ffma=True)
         torch.cuda.synchronize()
         for a, b in zip(got_old, old):  # the gather and the FFMA loop
             assert torch.equal(_bits(a), _bits(b))
@@ -652,7 +644,8 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
             outs = {}
             for h_dtype in (torch.float32, torch.bfloat16):
                 outs[h_dtype] = both(
-                    lambda: fn(mix, tab, fast=fast, h_dtype=h_dtype), bf16_ops)
+                    lambda **kw: fn(mix, tab, fast=fast, h_dtype=h_dtype,
+                                    **kw), bf16_ops)
                 exp = ref(mix, tab, fast=fast, h_dtype=h_dtype)
                 for got in outs[h_dtype]:
                     _close(got, exp, rtol)
@@ -662,7 +655,8 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
                 assert torch.equal(f32[1][:n_sub],
                                    f32[0].view(q, n_sub, 128).amax(2).T)
         exp = hk.unified_fused_ref(mix, tab, sd, sq, sv, fast=fast)
-        for got in both(lambda: hk.unified_fused(mix, tab, sd, sq, sv, fast=fast),
+        for got in both(lambda **kw: hk.unified_fused(mix, tab, sd, sq, sv,
+                                                      fast=fast, **kw),
                         bf16_ops):
             _close(got, exp, max(rtol, 2e-6))
             assert torch.equal(got[1][:n_sub],
@@ -670,7 +664,8 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind,
     full = None
     for kw in ({}, dict(epilogue=False), dict(smax_store=False),
                dict(store_h=False), dict(h_dtype=torch.bfloat16)):
-        pair = both(lambda: hk.heavy_fused_variant(mix, tab16, **kw), True)
+        pair = both(lambda **sw: hk.heavy_fused_variant(mix, tab16, **kw,
+                                                        **sw), True)
         full = full or pair
         exp = hk.heavy_fused_variant_ref(mix, tab16, **kw)
         for got, f in zip(pair, full):
@@ -838,9 +833,11 @@ def test_torch_index_modes_on_card_match_cpu_and_oracle(cuda, mode, kw):
     k3 = hk.gather_bf16_rows if kw.get("dense_rows_bf16") else hk.gather_rows
     oseg = [seg.to_oracle_segment()]
     for batch in queries:
-        n0 = k3.launches
+        n0, c0 = k3.launches, on_card.launch_cache.captures
         a = on_card.search_batch(batch, k=10)
-        assert k3.launches == n0 + (1 if mode == "fused" else 0)
+        # a batch that captures its graph launches K3 once more, eagerly
+        captured = on_card.launch_cache.captures - c0
+        assert k3.launches == n0 + (1 + captured if mode == "fused" else 0)
         if mode != "fast":
             for terms, x, y in zip(batch, a, on_cpu.search_batch(batch, k=10)):
                 assert x.found == y.found, terms
@@ -951,3 +948,198 @@ def test_hybrid_index_on_card_matches_host_rows(cuda, mode):
         assert x.found == y.found
         assert np.array_equal(x.doc_slots, y.doc_slots)
         assert np.allclose(x.scores, y.scores, rtol=2e-5, atol=0)
+
+
+# ------------------------------------------------------------ launch graphs
+
+
+def _graph_index(cuda, mode="sparse", **fields):
+    """A 20k-doc index on the card, pinned on its batch-64 envelope, and
+    the query stream (batch 0 probed the pins)."""
+    from nextsearch_tpu_torch.config import DeviceConfig, EngineConfig
+    from nextsearch_tpu_torch.index.segment import TorchIndex
+    from nextsearch_tpu_torch.tools.synthetic import build_corpus, sample_queries
+
+    seg, probs = build_corpus(20000, 3000)
+    cfg = EngineConfig(device=DeviceConfig(
+        mode=mode, posting_block=64, dense_df_ratio=1 / 256,
+        heavy_buckets=(64,), **fields))
+    batches = sample_queries(probs, 6 * 64, 64, seed=5)
+    ti = TorchIndex([seg], config=cfg, device=cuda)
+    ti.pin_shapes(batches, scope_q=True)
+    return seg, ti, batches
+
+
+def _bits_equal(a, b):
+    for x, y in zip(a, b):
+        assert x.found == y.found
+        assert np.array_equal(x.scores.view(np.uint32), y.scores.view(np.uint32))
+        assert np.array_equal(x.doc_slots, y.doc_slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fast", "tripped", "unified", "K4", "fused"])
+def test_graphed_launches_bit_equal_to_eager(cuda, path, monkeypatch):
+    """Each graphed serving launch against the same index run eagerly, on
+    the same batches: bit for bit, oracle-exact, one capture per key (the
+    fast launch and, when the guard trips, the exact relaunch) and none
+    after the first batch, the counters advanced by every replay."""
+    from nextsearch_tpu_torch.benchmarks.common import eager_cache
+    from nextsearch_tpu_torch.index.oracle import oracle_search
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+
+    fields = {"unified": True} if path == "unified" else {}
+    if path == "tripped":
+        fields["fast_heavy_eps"] = 1e9
+        monkeypatch.setenv("NEXTSEARCH_TRIP_RESCUE", "0")
+    if path == "K4":
+        monkeypatch.setenv("NEXTSEARCH_SELECT_PALLAS", "1")
+    counter = {"unified": hk.unified_fused,
+               "fused": hk.gather_rows}.get(path, hk.heavy_fused3)
+    seg, ti, batches = _graph_index(
+        cuda, "fused" if path == "fused" else "sparse", **fields)
+    graphed, eager = ti.launch_cache, eager_cache(cuda)
+    assert graphed.backend is not None and eager.backend is None
+    oseg = [seg.to_oracle_segment()]
+    for i, batch in enumerate(batches[1:]):
+        ti.launch_cache = eager
+        want = ti.search_batch(batch, k=10)
+        ti.launch_cache = graphed
+        caps, n0 = graphed.captures, counter.launches
+        rel = ti.relaunches
+        got = ti.search_batch(batch, k=10)
+        _bits_equal(got, want)
+        if i:
+            assert graphed.captures == caps
+        assert counter.launches > n0
+        if path == "tripped":
+            assert ti.relaunches == rel + 1
+        for terms, x in list(zip(batch, got))[:16]:
+            hits, found = oracle_search(oseg, terms, k=10)
+            assert x.found == found
+            assert [d for _s, _g, d in hits] == x.doc_slots.tolist()
+    assert graphed.captures == (2 if path == "tripped" else 1)
+    assert graphed.replays == len(batches[1:]) * (2 if path == "tripped" else 1)
+
+
+@pytest.mark.cuda
+def test_graphed_depth2_pipeline_chains_the_hybrid_rerank(cuda):
+    """Two graphed launches in flight, the hybrid rerank chained on each
+    handle's device_outs: equal to the same index and rerank run eagerly
+    (the second replay must not overwrite the first's result)."""
+    from nextsearch_tpu_torch.benchmarks.common import eager_cache
+    from nextsearch_tpu_torch.models.hybrid import HybridIndex
+    from nextsearch_tpu_torch.models.semantic import SemanticIndex
+
+    seg, ti, batches = _graph_index(cuda)
+    vecs = np.random.default_rng(6).standard_normal(
+        (len(seg.terms), 32)).astype(np.float32)
+    sem = SemanticIndex(device=cuda)
+    assert sem.load_from_arrays(seg.terms, vecs)
+    hy = HybridIndex(ti, sem)
+    graphed = ti.launch_cache
+    ti.launch_cache = eager_cache(cuda)
+    want = [hy.search_batch(b, k=10) for b in batches[1:]]
+    ti.launch_cache = graphed
+    hy.search_batch(batches[1], k=10)  # capture
+    window, got = [], []
+    for b in batches[1:]:
+        window.append(hy.search_batch_async(b, 10))
+        if len(window) > 2:
+            got.append(hy.search_batch_gather(window.pop(0)))
+    got += [hy.search_batch_gather(h) for h in window]
+    assert graphed.replays >= len(batches) - 1
+    for g, w in zip(got, want):
+        _bits_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_host_sync_inside_a_capture_raises(cuda):
+    from nextsearch_tpu_torch.ops.graphs import LaunchCache
+
+    cache = LaunchCache(cuda)
+
+    def syncs(x):
+        return x * float(x.sum().item())
+
+    with pytest.raises(RuntimeError):
+        cache.run(syncs, {"x": torch.ones(8, device=cuda)}, {})
+    assert cache.captures == 0
+    assert float((torch.ones(4, device=cuda) * 2).sum()) == 8.0
+
+
+@pytest.mark.cuda
+def test_dropping_an_index_releases_its_graph_pool(cuda):
+    """The bytes the card holds after each drop (memory_reserved once the
+    allocator's free blocks are returned: a live graph pool's blocks stay
+    reserved, though not allocated between replays) do not grow."""
+    import gc
+
+    held = []
+    for _ in range(3):
+        _seg, ti, batches = _graph_index(cuda)
+        ti.search_batch(batches[1], k=10)
+        assert ti.launch_cache.captures == 1
+        del ti
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held.append(torch.cuda.memory_reserved(cuda))
+    assert held[2] <= held[0]
+
+
+def _affine(x, *, table, scale):
+    return x * scale + table
+
+
+@pytest.mark.cuda
+def test_graphs_on_two_cards_replay_bit_equal_to_eager(cuda):
+    """Graphs on two cards, cuda:0's captured first: a bare launch per
+    card, then ShardedIndex over a (1, 2) mesh of the two cards, whose
+    local steps replay one graph per card. Every replay on fresh inputs
+    equals the eager launch bit for bit (a capture on another card's stream
+    records nothing, and its replays would hand back the capture's
+    output)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from nextsearch_tpu_torch.benchmarks.common import eager_cache
+    from nextsearch_tpu_torch.config import DeviceConfig, EngineConfig
+    from nextsearch_tpu_torch.ops.graphs import LaunchCache
+    from nextsearch_tpu_torch.parallel.mesh import make_mesh
+    from nextsearch_tpu_torch.parallel.sharded import ShardedIndex
+    from nextsearch_tpu_torch.tools.synthetic import build_corpus, sample_queries
+
+    cards = [torch.device("cuda", i) for i in (0, 1)]
+    for d in cards:
+        cache = LaunchCache(d)
+        table = torch.arange(64, dtype=torch.float32, device=d)
+        for seed in range(3):
+            g = torch.Generator().manual_seed(seed)
+            x = torch.rand(64, generator=g).to(d)
+            got = cache.run(_affine, {"x": x}, dict(table=table, scale=3.0))
+            assert got.device == d
+            assert torch.equal(got, _affine(x, table=table, scale=3.0))
+        assert (cache.captures, cache.replays) == (1, 3)
+
+    (seg0, probs), (seg1, _p) = (build_corpus(n, 3000, seed=s)
+                                 for n, s in ((12000, 1), (9000, 2)))
+    cfg = EngineConfig(device=DeviceConfig(
+        mode="sparse", posting_block=64, dense_df_ratio=1 / 256,
+        heavy_buckets=(64,)))
+    si = ShardedIndex([seg0, seg1], make_mesh(dp=1, seg=2, devices=cards),
+                      config=cfg)
+    batches = sample_queries(probs, 6 * 64, 64, seed=5)
+    si.pin_shapes(batches, scope_q=True)
+    graphed = dict(si.launch_caches)
+    assert set(graphed) == set(cards)
+    eager = {d: eager_cache(d) for d in cards}
+    si.warm_batch(batches[0], k=10)
+    caps = {d: c.captures for d, c in graphed.items()}
+    assert all(caps.values()), caps
+    for b in batches[1:]:
+        si.launch_caches = eager
+        want = si.search_batch(b, k=10)
+        si.launch_caches = graphed
+        _bits_equal(si.search_batch(b, k=10), want)
+    assert {d: c.captures for d, c in graphed.items()} == caps
+    assert all(c.replays >= len(batches) for c in graphed.values())

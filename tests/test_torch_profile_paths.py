@@ -38,8 +38,50 @@ def test_summarize_counts_device_events_only():
     assert s["span_ms"] == pytest.approx(25 / 1e3)
     assert s["idle_share"] == pytest.approx(1 - 13 / 25)
     assert s["top_kernels"][0] == ("gemm", pytest.approx(9 / 1e3 / 2))
+    assert s["kernels_by_name"] == {"gemm": 2, "sort": 1}
+    assert (s["copies_per_batch"], s["memsets_per_batch"]) == (0.5, 0.0)
+    assert s["batches"] == 2
 
 
-def test_summarize_empty_trace():
-    s = pp.summarize({"traceEvents": []}, n_batches=1)
-    assert s["device_ms_per_batch"] == 0 and s["idle_share"] is None
+def test_kernel_mix_diff_names_what_differs():
+    eager = {"kernels_by_name": {"gemm": 20, "sort": 10}}
+    assert pp.kernel_mix_diff(eager, eager) == {}
+    graphed = {"kernels_by_name": {"gemm": 20, "sort": 9, "fill": 3}}
+    assert pp.kernel_mix_diff(eager, graphed) == {"sort": -1, "fill": 3}
+
+
+def _mix(kernels, copies=15.0, memsets=20.0):
+    return {"kernels_by_name": kernels, "copies_per_batch": copies,
+            "memsets_per_batch": memsets, "batches": 10}
+
+
+@pytest.mark.parametrize("graphed,added,bad", [
+    (_mix({"gemm": 400, "sort": 100}), 0.0, {}),
+    (_mix({"gemm": 398, "sort": 101}), 0.0, {}),               # trace noise
+    (_mix({"gemm": 400, "sort": 100, "fill": 2}), 0.0, {}),
+    (_mix({"gemm": 400, "sort": 100, "fill": 3}), 0.0, {"fill": 3}),
+    (_mix({"gemm": 390, "sort": 100}), 0.0, {"gemm": -10, "total": -10}),
+    (_mix({"gemm": 400, "sort": 100, "a": 2, "b": 2, "c": 2}), 0.0,
+     {"total": 6}),                                            # > 1% of 500
+    (_mix({"gemm": 400, "sort": 100, **{f"k{i}": 1 for i in range(31)}}),
+     0.0, {"total": 31}),
+    # CUDA ran 18 memsets and 13 copies a batch as node kernels, and
+    # the replays copied a plan in and a result out
+    (_mix({"gemm": 400, "sort": 100, "memset32": 180, "memcpy128": 50,
+           "memcpy32_post": 80}, copies=3.9, memsets=2.0), 2.0, {}),
+    (_mix({"gemm": 400, "sort": 100}, copies=17.0), 2.0, {}),
+    (_mix({"gemm": 400, "sort": 100}, copies=19.0), 2.0,
+     {"memory operations a batch": 4.0}),
+    (_mix({"gemm": 400, "sort": 100, "memset32": 20}), 0.0,
+     {"memory operations a batch": 2.0}),
+])
+def test_kernel_mix_mismatch_passes_noise_only(graphed, added, bad):
+    eager = _mix({"gemm": 400, "sort": 100})
+    assert pp.kernel_mix_mismatch(eager, graphed, added) == bad
+
+
+def test_split_node_kernels():
+    kern, mem = pp.split_node_kernels(_mix(
+        {"gemm": 4, "memset32": 10, "memcpy128": 5, "memcpy32_post": 5,
+         "memsetFoo": 1}, copies=1.0, memsets=2.0))
+    assert kern == {"gemm": 4, "memsetFoo": 1} and mem == 5.0
