@@ -98,9 +98,9 @@ non-zero before the last line:
    memory; the guarded fast launch (K2 + K1 per shard) and a forced trip of
    8 queries rescued on the host, oracle-exact across the merge; device ms
    per batch and the merge's ms; one batch of a fused (1,4) index at
-   bench.py's fused configuration (K3 once per shard). (u3)
-   dryrun_multichip(4): the toy and the production passes on (2,2) and
-   (1,4), oracle-exact.
+   bench.py's fused configuration (K3 and score_epilogue once per shard).
+   (u3) dryrun_multichip(4): the toy and the production passes on (2,2)
+   and (1,4), oracle-exact.
    (v) the build switches, each index built once over the same corpus and
    configuration and held to the main index: (v1)
    NEXTSEARCH_LIGHT_BUILD=device and NEXTSEARCH_ROW_TOPK_BUILD=device: the
@@ -133,20 +133,25 @@ non-zero before the last line:
    (the library default) is built over the same corpus at bench.py's fused
    configuration (dense ratio 1/256, 2 GiB of rows, block 64, K2 32). K3
    on this path's operands (the batch's unique heavy rows, padded to the
-   pinned U) against its plain version and index_select; (m) one batch-512
-   launch spot-checked bit-exact against the oracle, with K3 launched once
-   and no other kernel; a 3 s loop at depth 2 (QPS, p50, stream span per
-   batch, peak memory; K3 once per batch); (n) one batch of 64 in exact
-   mode, bit-exact and run twice for the same bits, and (o) one in fast
-   mode (found equal, scores within 1e-5, docs equal outside near-ties),
-   both at the library's posting block of 2048; one hybrid batch of 128
-   over this index under (t)'s gate.
+   pinned U) against its plain version and index_select; score_epilogue
+   (the add of the heavy product, found and the tile maxima in one pass)
+   on the spot batch's light scatter, in f32 and in bf16, and f32 product,
+   bit-exact against its plain version (scores' bits, found, tile_max),
+   timed beside it with its bytes' bound, and its found-only form; (m) one
+   batch-512 launch spot-checked bit-exact against the oracle, with K3 and
+   score_epilogue launched once each and no other kernel; a 3 s loop at
+   depth 2 (QPS, p50, stream span per batch, peak memory; K3 and
+   score_epilogue once per batch); (n) one batch of 64 in exact mode,
+   bit-exact and run twice for the same bits, and (o) one in fast mode
+   (found equal, scores within 1e-5, docs equal outside near-ties), both
+   at the library's posting block of 2048 and launching score_epilogue
+   once; one hybrid batch of 128 over this index under (t)'s gate.
 7. probe paths: benchmarks/kernel_probe.py (P1-P5, all PASS) and one
    short run of benchmarks/probe_fusedmm.py (K6 and every P6 variant).
 8. server: a small on-disk index served over HTTP by the port's Engine, in
    sparse mode (answers run K1 and K2) and in the mode the server's main
    starts in with no NEXTSEARCH_MODE, the library default (fused; answers
-   run K3); /api/search answers must match the oracle, ?hybrid=1
+   run K3 and score_epilogue); /api/search answers must match the oracle, ?hybrid=1
    (there is no embeddings file) must answer the same, and
    /api/suggest?q=w00 the autocomplete table's list. The first sparse
    serve runs its requests with NEXTSEARCH_PROFILE_DIR set: (x) the
@@ -987,6 +992,9 @@ KERNELS = {
     # the pre-pass of K1/K5/K6/P6's port, launched by their wrappers; no TPU
     # kernel of its own, so it names K1's
     "mix_lists": "nextsearch_tpu/ops/heavy_pallas.py:706",
+    # the fused mode's passes after the dot (add, found, tile max), which
+    # XLA fuses in the reference (no Pallas kernel): it names the add
+    "score_epilogue": "nextsearch_tpu/ops/bm25.py:358",
 }
 # the products whose wrappers launch mix_lists once each
 PRODUCTS = ("heavy_fused3", "unified_fused", "heavy_fused",
@@ -997,9 +1005,11 @@ PROBES = ("nt_dot", "row_copy", "window_op", "reshape_copy", "transpose")
 def _wrappers():
     from nextsearch_tpu_torch.ops import heavy_kernels as hk
     from nextsearch_tpu_torch.ops import probe_kernels as pk
+    from nextsearch_tpu_torch.ops import score_kernels as se
     from nextsearch_tpu_torch.ops import select_kernels as sk
 
-    module = {"per_query_topk": sk, **dict.fromkeys(PROBES, pk)}
+    module = {"per_query_topk": sk, "score_epilogue": se,
+              **dict.fromkeys(PROBES, pk)}
     return {name: getattr(module.get(name, hk), name) for name in KERNELS}
 
 
@@ -1180,7 +1190,7 @@ def main_path(ti, oracle_segs, batches, device, loop_secs: float, card: str):
 PATH_KERNELS = {"default": ("heavy_fused3", "gather_rows_bf16"),
                 "unified": ("unified_fused", "gather_rows_bf16"),
                 "K4": ("heavy_fused3", "gather_rows_bf16", "per_query_topk"),
-                "fused": ("gather_rows",)}
+                "fused": ("gather_rows", "score_epilogue")}
 GRAPH_CHECK_BATCHES = 8  # batches run both ways and held bit for bit
 
 
@@ -1582,17 +1592,78 @@ def fast_mode_check(ti, oracle_segs, queries, results):
     return ranks, exempt
 
 
+def check_epilogue(ti, queries, device, reps: int) -> dict:
+    """score_epilogue on the fused launch's own operands for `queries`: the
+    light terms' scatter into f32 and into bf16 scores, and the heavy rows'
+    f32 product, at the index's n_slots. Each form bit-equal to the plain
+    version (the scores' bits, found, tile_max); its median ms beside the
+    plain version's (the eager passes it replaced: the cast, the add, the
+    count and the tile max) and the bound of its bytes (S read, H read, S
+    written, found and tile_max written); then the found-only form of
+    exact and fast mode on the f32 scores (S read, found written)."""
+    import torch
+
+    from nextsearch_tpu_torch.ops import bm25
+    from nextsearch_tpu_torch.ops import score_kernels as se
+
+    starts, _dfs, weights, light_dfs, uh, mix = ti.plan_full(queries)
+    block = ti.config.device.posting_block
+    up = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    chunks = bm25.expand_chunks(up(starts), up(light_dfs), up(weights),
+                                C=ti._chunk_budget(light_dfs, block),
+                                block=block)
+    h = bm25.heavy_scores(ti.dense_rows, up(uh), up(mix))
+    out = dict(max_abs_err=0.0, library_ms=None, q=len(queries),
+               n_slots=ti.n_slots)
+    for label, dtype in (("", torch.float32), ("bf16_", torch.bfloat16)):
+        sc = bm25.scatter_scores(ti.post_doc, ti.post_score, *chunks,
+                                 Q=len(queries), n_slots=ti.n_slots,
+                                 block=block, dtype=dtype)
+        ib = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        got = sc.clone()
+        found, tmax = se.score_epilogue(got, h)
+        rfound, rmax = se.score_epilogue_ref(sc, h)
+        if not (torch.equal(got.view(ib), sc.view(ib))
+                and torch.equal(found, rfound)
+                and torch.equal(tmax.view(ib), rmax.view(ib))):
+            raise AssertionError(f"score_epilogue {dtype} is not bit-exact "
+                                 "on the fused batch")
+        del got, rfound, rmax
+        # each timed call adds H again: the values grow, the work does not
+        out.update(prefixed(label, dict(
+            ms=timed(lambda: se.score_epilogue(sc, h), device, reps),
+            plain_ms=timed(lambda: se.score_epilogue_ref(sc, h), device, reps),
+            **bound(2 * nbytes(sc) + nbytes(h, found, tmax)))))
+        if not label:
+            f_only, _ = se.score_epilogue(sc, tiles=False)
+            if not torch.equal(f_only, se.score_epilogue_ref(sc, tiles=False)[0]):
+                raise AssertionError("score_epilogue's found-only form is "
+                                     "not exact on the fused batch")
+            out.update(prefixed("found_only_", dict(
+                ms=timed(lambda: se.score_epilogue(sc, tiles=False), device,
+                         reps),
+                plain_ms=timed(lambda: se.score_epilogue_ref(sc, tiles=False),
+                               device, reps),
+                **bound(nbytes(sc, f_only)))))
+        del sc
+    say("score_epilogue on the fused batch (f32 and bf16 scores, the "
+        "found-only form), bit-exact: " + fmt(out))
+    return out
+
+
 def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
                 reps, sem):
     """The library default on the card: a fused-mode TorchIndex over the
     bench corpus at bench.py's fused configuration. K3 at this path's
-    shapes against its plain version and index_select; one batch-512 launch
-    spot-checked bit-exact with K3 launched once; the pipelined loop; one
-    batch of 64 in exact mode (bit-exact, run twice for the same bits) and
-    in fast mode (fast_mode_check), both at the library's posting block of
-    2048; then one hybrid batch of 128 over this index (the fused handle)
-    under hybrid_gate. Returns (launch totals, K3's numbers here, loop
-    numbers)."""
+    shapes against its plain version and index_select, and score_epilogue
+    on the spot batch's operands (check_epilogue); one batch-512 launch
+    spot-checked bit-exact with K3 and score_epilogue launched once each;
+    the pipelined loop; one batch of 64 in exact mode (bit-exact, run twice
+    for the same bits) and in fast mode (fast_mode_check), both at the
+    library's posting block of 2048, each launching score_epilogue once;
+    then one hybrid batch of 128 over this index (the fused handle) under
+    hybrid_gate. Returns (launch totals, K3's numbers here,
+    score_epilogue's, loop numbers)."""
     import numpy as np
     import torch
 
@@ -1625,6 +1696,7 @@ def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
                 + int(torch.unique(ids).numel()) * ti.n_slots * 4))
     del got
     say("K3 on the fused path: " + fmt(k3))
+    ep = check_epilogue(ti, spot, device, reps)
 
     def run(label, queries, expect, check):
         warm(ti, queries)
@@ -1644,13 +1716,14 @@ def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
 
     exact_check = lambda q, r: spot_check(ti, oracle_segs, q, r, memo)  # noqa: E731
     cfg = ti.config
+    fused_kernels = {"gather_rows": 1, "score_epilogue": 1}
     try:
-        run("(m) fused, batch 512", spot, {"gather_rows": 1}, exact_check)
+        run("(m) fused, batch 512", spot, fused_kernels, exact_check)
         counts, perf = serving_loop(ti, batches, device, loop_secs, "fused",
                                     card)
         n_batches_run = counts["gather_rows"]
-        if n_batches_run <= 0 or any(
-                c for name, c in counts.items() if name != "gather_rows"):
+        if n_batches_run <= 0 or launched(counts) != dict.fromkeys(
+                fused_kernels, n_batches_run):
             raise AssertionError(f"fused loop launches: {launched(counts)}")
         for name, c in counts.items():
             total[name] += c
@@ -1663,7 +1736,8 @@ def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
         perf["exact_keys"] = exact_window_keys(ti, batches)
         small = spot[:64]
         _config(ti, cfg, mode="exact", posting_block=2048)
-        first = run("(n) exact, batch 64", small, {}, exact_check)
+        first = run("(n) exact, batch 64", small, {"score_epilogue": 1},
+                    exact_check)
         again = ti.search_batch(small, k=K)
         if not all(a.found == b.found
                    and np.array_equal(a.scores.view(np.uint32),
@@ -1672,7 +1746,7 @@ def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
                    for a, b in zip(first, again)):
             raise AssertionError("exact mode: two runs differ")
         _config(ti, cfg, mode="fast", posting_block=2048)
-        run("(o) fast, batch 64", small, {}, lambda q, r: say(
+        run("(o) fast, batch 64", small, {"score_epilogue": 1}, lambda q, r: say(
             "fast mode: %d ranks, %d near-ties exempt from the doc comparison"
             % fast_mode_check(ti, oracle_segs, q, r)))
     finally:
@@ -1685,16 +1759,17 @@ def fused_phase(oracle_segs, device, n_docs, vocab, n_batches, loop_secs, card,
     reset_counts()
     res = hy.search_batch(queries, k=K, candidates=CANDIDATES)
     counts = launched(launch_counts())
-    if counts != {"gather_rows": 1}:
+    if counts != fused_kernels:
         raise AssertionError(f"(t) hybrid over the fused index: launches {counts}")
-    total["gather_rows"] += 1
+    for name, c in counts.items():
+        total[name] += c
     hybrid_gate(hy, queries[:16], res[:16])
     say(f"(t) hybrid over the fused index: a batch of {HYBRID_BATCH}, 16 pass "
         f"the gate; launches {counts}")
     del hy
     perf.update(n_dense=ti.n_dense, hbm_bytes=hbm["total"])
     del ti
-    return total, k3, perf
+    return total, k3, ep, perf
 
 
 # ---------------------------------------------------------------- models:
@@ -2402,7 +2477,7 @@ def sharded_1x4(seg, batches, device, card, reps):
     say(f"(u2) fused sharded (1,4): n_dense per shard {sf.per_shard_rows}, "
         f"built in {time.perf_counter() - t:.1f} s")
     run = sharded_launches(sf, osegs, spot, total, memo)
-    run("(u2c) (1,4) fused", {k3: S})
+    run("(u2c) (1,4) fused", {k3: S, "score_epilogue": S})
     out["fused_device_ms_per_batch"] = traced_ms(sf, batches, device, n=4)
     del sf
     if cuda:
@@ -2432,7 +2507,8 @@ def sharded_phase(ti, seg, oseg, batches, device, loop_secs, card, main_qps,
         f"on {u3['meshes']} over {u3['devices']}; launches {counts}")
     for name, c in counts.items():
         total[name] += c
-    for name in ("heavy_fused3", "gather_rows_bf16", "gather_rows", "mix_lists"):
+    for name in ("heavy_fused3", "gather_rows_bf16", "gather_rows", "mix_lists",
+                 "score_epilogue"):
         if total[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in (u)")
     say(f"[{card}] phase (u) sharded: {time.perf_counter() - t0:.1f}s")
@@ -2682,6 +2758,7 @@ def server_phase(device):
     from nextsearch_tpu_torch.index.builder import build_segment_arrays
     from nextsearch_tpu_torch.index.segmentio import save_manifest, write_segment
     from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops import score_kernels as se
 
     r = np.random.default_rng(5)
     vocab = 600
@@ -2712,8 +2789,8 @@ def server_phase(device):
         modes = (
             ("sparse", sparse, (hk.heavy_fused3, hk.gather_rows_bf16), None),
             ("default (fused)", replace(default, device=replace(
-                default.device, dense_df_ratio=1 / 64)), (hk.gather_rows,),
-             None),
+                default.device, dense_df_ratio=1 / 64)),
+             (hk.gather_rows, se.score_epilogue), None),
             ("(u4) sparse --mesh 1,1", sparse,
              (hk.heavy_fused3, hk.gather_rows_bf16), mesh),
         )
@@ -2973,8 +3050,8 @@ def run(device_name="cuda", n_docs=N_DOCS, vocab=VOCAB, n_batches=64,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     ph.done("bf16 rows")
-    counts, k3_fused, fused = fused_phase([oseg], device, n_docs, vocab,
-                                          n_batches, loop_secs, card, reps, sem)
+    counts, k3_fused, kern["score_epilogue"], fused = fused_phase(
+        [oseg], device, n_docs, vocab, n_batches, loop_secs, card, reps, sem)
     kern["gather_rows"].update(prefixed("fused_", k3_fused))
     for name, c in counts.items():
         launches[name] += c

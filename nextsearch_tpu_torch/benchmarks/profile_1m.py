@@ -5,14 +5,19 @@ A mirror of ops/bm25.bm25_search_packed with per-stage toggles, timed as
 whole launches over one batch stream; the delta of a variant against
 "full" attributes the dropped stage (results wrong by design):
 
-    full        the fused packed launch (scatter, heavy product, found,
+    full        the fused packed launch (scatter, heavy product, the
+                score epilogue: add, found and tile maxima in one kernel,
                 tiled top-k, exact rescore, canonical order)
     no_rescore  exact rescore and canonical order off
     no_topk     candidate selection off (fixed candidates), no rescore
     plain_topk  one top-k over the whole score row instead of tiled_topk
-    no_found    the found count off
+    no_found    the found count dropped: with the heavy stage on, the
+                epilogue counts in the pass that adds H, which still runs
+                (its count costs nothing apart); with it off, the
+                epilogue's read pass goes
     no_scatter  the light terms' scatter off
-    no_heavy    the heavy rows' gather (K3) and product off
+    no_heavy    the heavy rows' gather (K3), product and add off (the
+                epilogue reads the scores for found and the tile maxima)
     base        everything off
 
 The configuration is the reference's: fused mode, posting block 512,
@@ -40,9 +45,10 @@ import numpy as np
 import torch
 
 from ..ops.bm25 import (
-    _found, canonical_sort, exact_rescore, expand_chunks, heavy_scores,
+    canonical_sort, exact_rescore, expand_chunks, heavy_scores,
     scatter_scores, tiled_topk, topk_low_index,
 )
+from ..ops.score_kernels import score_epilogue
 
 VARIANTS = {
     "full": {},
@@ -75,14 +81,17 @@ def variant_kernel(post_doc, post_score, dense_rows, plan_ints, plan_f32, *,
                                 n_slots=n_slots, block=block, dtype=sdtype)
     else:
         scores = torch.zeros((Q, n_slots), dtype=sdtype, device=dev)
+    found = tile_max = None
     if do_heavy:
-        scores = scores.add_(heavy_scores(dense_rows, unique_heavy, heavy_mix,
-                                          dtype=sdtype))
-    found = (_found(scores) if do_found
-             else torch.zeros((Q,), dtype=torch.int32, device=dev))
+        found, tile_max = score_epilogue(
+            scores, heavy_scores(dense_rows, unique_heavy, heavy_mix))
+    elif do_found:
+        found, tile_max = score_epilogue(scores)
+    if not do_found:
+        found = torch.zeros((Q,), dtype=torch.int32, device=dev)
     k2 = min(K2, n_slots)
     if topk == "tiled":
-        _fv, cand = tiled_topk(scores, k2)
+        _fv, cand = tiled_topk(scores, k2, tile_max=tile_max)
     elif topk == "plain":
         _fv, cand = topk_low_index(scores, k2)
     else:  # fixed candidates, downstream shapes kept

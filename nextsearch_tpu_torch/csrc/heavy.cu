@@ -44,6 +44,12 @@
 //                  as exact f32 values and global flat indices, ties going
 //                  to the lowest index, zeros past the live entries: a
 //                  one-pass threshold select (per_query_select_kernel).
+// ns_score_epilogue ports XLA's fusion of the fused mode's passes over the
+//                  [Q, n_slots] score array after the heavy product
+//                  (nextsearch_tpu/ops/bm25.py:300-301/358-359/232; no
+//                  Pallas kernel): scores += H in place, found = the count
+//                  of scores > 0, and tiled_topk's per-2048-doc tile max,
+//                  in one pass (score_epilogue_kernel).
 // ns_probe_*       replace benchmarks/mosaic_probe.py's lowering probes
 //                  P1-P5 (t1/k1 .. t5/k5): nt_dot (o = a . b^T), row_copy
 //                  (2 * e[off[0]] at an index read on the device),
@@ -1793,6 +1799,155 @@ dim3 probe_tiles(int rows, int cols) {
   return dim3((cols + PTS - 1) / PTS, (rows + PTS - 1) / PTS);
 }
 
+// ------------------------------------------------------------ score epilogue
+//
+// score_epilogue_kernel ports what XLA fuses after the fused mode's dot in
+// the reference's jitted launch (nextsearch_tpu/ops/bm25.py:300-301 and
+// :358-359, and tiled_topk's tile max at :232; no Pallas kernel): over the
+// [Q, N] pass-1 scores S and the heavy product H (f32, torch.matmul's
+// output), S += H in place, found[q] += the count of S > 0 after the add,
+// and tile_max[q, t] = the max of each `chunk`-doc tile of a row. With
+// bf16 S it rounds as the reference does: H to bf16 first
+// (heavy_scores(..., dtype=bf16)), then the bf16 sum, both to nearest
+// even. Without H it only counts and takes maxima (exact and fast mode).
+//
+// Bound by bytes: nothing is reused, so the least traffic is S read, H
+// read and S written once, 6.15 GB at Q 512 x n_slots 1,001,472 with f32
+// scores (1.84 ms at 3.35 TB/s; 4.1 GB with bf16 S). The eager passes this
+// replaces (a cast where S is bf16, the add, a bool array and its int32
+// sum for `found`, the tile max) read or write the array five or six
+// times; one pass that touches each byte once is the whole design.
+//
+// One warp per (row, chunk of `chunk` docs), eight warps a block: a
+// block's warps take consecutive chunks of a row. 16-byte loads and stores
+// over the chunk's body, EPI_UNROLL of each in flight per lane, a scalar
+// head and tail where a chunk does not start or end on 16 bytes (odd N),
+// and all-scalar where the caller's pointers are not 16-byte aligned
+// (vec_ok = 0). The chunk's max is a warp reduction; its count one
+// atomicAdd into found, which the caller zeroes: integer sums, so the
+// result does not depend on the order of the warps. Scores are finite and
+// >= 0 (positive BM25 contributions), so fmaxf is the reference's max.
+constexpr int EPI_THREADS = 256;
+constexpr int EPI_WARPS = EPI_THREADS / 32;
+constexpr int EPI_UNROLL = 4;
+
+__device__ __forceinline__ float epi_float(float x) { return x; }
+__device__ __forceinline__ float epi_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void epi_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void epi_store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);  // exact: x is a bf16 value
+}
+
+// s + h as the reference rounds it: the f32 sum; in bf16, h rounded to
+// bf16, then the sum rounded, both to nearest even.
+__device__ __forceinline__ float epi_add(float s, float h) { return s + h; }
+__device__ __forceinline__ __nv_bfloat16 epi_add(__nv_bfloat16 s, float h) {
+  return __float2bfloat16_rn(__bfloat162float(s) +
+                             __bfloat162float(__float2bfloat16_rn(h)));
+}
+
+template <typename T, bool ADD>
+__device__ __forceinline__ void epi_scalar(T* __restrict__ s,
+                                           const float* __restrict__ h,
+                                           long long i, int& cnt, float& mx) {
+  T v = s[i];
+  if (ADD) {
+    v = epi_add(v, h[i]);
+    s[i] = v;
+  }
+  const float f = epi_float(v);
+  cnt += f > 0.f;
+  mx = fmaxf(mx, f);
+}
+
+template <typename T, bool ADD>
+__global__ void __launch_bounds__(EPI_THREADS)
+score_epilogue_kernel(T* __restrict__ s, const float* __restrict__ h, int Q,
+                      long long N, long long chunk, long long n_chunks,
+                      T* __restrict__ tile_max, int* __restrict__ found,
+                      int vec_ok) {
+  constexpr int VEC = 16 / sizeof(T);  // S entries per 16-byte vector
+  constexpr int HV = VEC / 4;          // H float4s per S vector
+  const int lane = threadIdx.x & 31;
+  const long long w = static_cast<long long>(blockIdx.x) * EPI_WARPS +
+                      (threadIdx.x >> 5);
+  if (w >= static_cast<long long>(Q) * n_chunks) return;  // the whole warp
+  const long long r = w / n_chunks;
+  const long long c = w - r * n_chunks;
+  const long long g0 = r * N + c * chunk;
+  const long long g1 = r * N + (c + 1 < n_chunks ? (c + 1) * chunk : N);
+  // the 16-byte body [a0, a1); every entry outside it is scalar
+  long long a0 = g1, a1 = g1;
+  if (vec_ok) {
+    a0 = (g0 + VEC - 1) / VEC * VEC;
+    if (a0 > g1) a0 = g1;
+    a1 = a0 + (g1 - a0) / VEC * VEC;
+  }
+  int cnt = 0;
+  float mx = __int_as_float(0xff800000);  // -inf
+  for (long long i = g0 + lane; i < a0; i += 32) epi_scalar<T, ADD>(s, h, i, cnt, mx);
+  for (long long i = a1 + lane; i < g1; i += 32) epi_scalar<T, ADD>(s, h, i, cnt, mx);
+  uint4* sv = reinterpret_cast<uint4*>(s + a0);
+  const float4* hv = reinterpret_cast<const float4*>(h + (ADD ? a0 : 0));
+  const long long nv = (a1 - a0) / VEC;
+  for (long long j0 = lane; j0 < nv; j0 += 32 * EPI_UNROLL) {
+    uint4 x[EPI_UNROLL];
+    float4 y[EPI_UNROLL][HV];
+#pragma unroll
+    for (int u = 0; u < EPI_UNROLL; ++u) {
+      const long long j = j0 + u * 32;
+      if (j < nv) {
+        x[u] = sv[j];
+        if (ADD) {
+#pragma unroll
+          for (int k = 0; k < HV; ++k) y[u][k] = __ldcs(hv + j * HV + k);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < EPI_UNROLL; ++u) {
+      const long long j = j0 + u * 32;
+      if (j < nv) {
+        T* e = reinterpret_cast<T*>(&x[u]);
+        const float* f = reinterpret_cast<const float*>(&y[u][0]);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          if (ADD) e[k] = epi_add(e[k], f[k]);
+          const float v = epi_float(e[k]);
+          cnt += v > 0.f;
+          mx = fmaxf(mx, v);
+        }
+        if (ADD) sv[j] = x[u];
+      }
+    }
+  }
+  cnt = static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(cnt)));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) {
+    if (cnt) atomicAdd(found + r, cnt);
+    if (tile_max != nullptr) epi_store(tile_max + w, mx);
+  }
+}
+
+template <typename T>
+void launch_score_epilogue(void* s, const float* h, int Q, long long N,
+                           long long chunk, long long n_chunks, void* tile_max,
+                           int* found, int vec_ok, unsigned int blocks,
+                           cudaStream_t st) {
+  T* sp = static_cast<T*>(s);
+  T* tm = static_cast<T*>(tile_max);
+  if (h != nullptr)
+    score_epilogue_kernel<T, true><<<blocks, EPI_THREADS, 0, st>>>(
+        sp, h, Q, N, chunk, n_chunks, tm, found, vec_ok);
+  else
+    score_epilogue_kernel<T, false><<<blocks, EPI_THREADS, 0, st>>>(
+        sp, h, Q, N, chunk, n_chunks, tm, found, vec_ok);
+}
+
 }  // namespace
 
 // mixb (null for none) takes the rounded rows as bf16 [Q, ND_pad], ND_pad >=
@@ -1958,6 +2113,31 @@ extern "C" int ns_per_query_topk(const float* scores, const long long* bounds,
   else
     per_query_select_kernel<<<n_queries, SELECT_THREADS, 0, s>>>(
         scores, bounds, n, k2, vals, gidx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scores [Q, N] (f32, or bf16 where scores_bf16), heavy f32 [Q, N] or null
+// for the count and maxima alone; tile_max [Q, N / chunk] in the scores'
+// type, or null, and then N need not be a multiple of chunk; found int32
+// [Q], zeroed by the caller. vec_ok != 0: scores and heavy are 16-byte
+// aligned.
+extern "C" int ns_score_epilogue(void* scores, const float* heavy,
+                                 int scores_bf16, int Q, long long N,
+                                 long long chunk, void* tile_max, int* found,
+                                 int vec_ok, void* stream) {
+  if (Q <= 0 || N <= 0 || chunk <= 0 || (tile_max != nullptr && N % chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_chunks = (N + chunk - 1) / chunk;
+  const long long blocks = (Q * n_chunks + EPI_WARPS - 1) / EPI_WARPS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int b = static_cast<unsigned int>(blocks);
+  if (scores_bf16)
+    launch_score_epilogue<__nv_bfloat16>(scores, heavy, Q, N, chunk, n_chunks,
+                                         tile_max, found, vec_ok, b, s);
+  else
+    launch_score_epilogue<float>(scores, heavy, Q, N, chunk, n_chunks,
+                                 tile_max, found, vec_ok, b, s);
   return static_cast<int>(cudaGetLastError());
 }
 

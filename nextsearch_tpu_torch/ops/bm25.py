@@ -15,13 +15,17 @@ per-doc scores, take the top k. Three modes share the pieces here:
   fused  (bm25_topk_fused, bm25_search_packed; the library default) pass 1
          is the fast scatter over the light terms plus one dense product
          for the heavy terms' precomputed rows (heavy_scores: a row gather
-         through the K3 kernel, then torch.matmul); pass 2 rescores the top
-         K2 candidates exactly, in term-slot order, so reported scores are
-         bit-exact, and re-ranks them by (score desc, doc slot asc).
+         through the K3 kernel, then torch.matmul), added into the scores
+         by score_epilogue (ops/score_kernels.py: one CUDA pass that also
+         counts found and takes tiled_topk's tile maxima, as XLA fuses
+         the reference's passes); pass 2 rescores the top K2 candidates
+         exactly, in term-slot order, so reported scores are bit-exact,
+         and re-ranks them by (score desc, doc slot asc).
 
 Every function returns (or packs) vals f32 [Q, K], idx int32 [Q, K] global
-doc slots and found int32 [Q], the count of docs with score > 0. Padded or
-absent slots carry df = 0 and weight = 0. Ties break by lowest doc slot.
+doc slots and found int32 [Q], the count of docs with score > 0 (counted by
+score_epilogue in every mode). Padded or absent slots carry df = 0 and
+weight = 0. Ties break by lowest doc slot.
 
 Where the JAX functions send invalid lanes to an out-of-range index and
 rely on mode="drop", these add them (as zeros) into sacrificial elements
@@ -40,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from .heavy_kernels import gather_bf16_rows, gather_rows
+from .score_kernels import score_epilogue
 
 PAD_DOC = 2**30  # dead candidate slot (sorts after every real doc)
 
@@ -158,10 +163,6 @@ def scatter_scores(post_doc, post_score, chunk_start, chunk_len, chunk_q,
     return buf[: Q * n_slots].view(Q, n_slots)
 
 
-def _found(scores: torch.Tensor) -> torch.Tensor:
-    return (scores > 0).sum(dim=1, dtype=torch.int32)
-
-
 def bm25_topk_fast(post_doc, post_score, chunk_start, chunk_len, chunk_q,
                    chunk_w, *, n_slots: int, K: int, Q: int,
                    block: int = 4096):
@@ -170,8 +171,9 @@ def bm25_topk_fast(post_doc, post_score, chunk_start, chunk_len, chunk_q,
     scores = scatter_scores(post_doc, post_score, chunk_start, chunk_len,
                             chunk_q, chunk_w, Q=Q, n_slots=n_slots,
                             block=block)
+    found, _ = score_epilogue(scores, tiles=False)
     vals, idx = topk_low_index(scores, K)
-    return vals, idx.to(torch.int32), _found(scores)
+    return vals, idx.to(torch.int32), found
 
 
 def score_only_exact(post_doc, post_score, starts, dfs, weights, *,
@@ -208,8 +210,9 @@ def bm25_topk_exact(post_doc, post_score, starts, dfs, weights, *,
     int32, found)."""
     scores = score_only_exact(post_doc, post_score, starts, dfs, weights,
                               n_slots=n_slots, block=block, max_df=max_df)
+    found, _ = score_epilogue(scores, tiles=False)
     vals, idx = topk_low_index(scores, K)
-    return vals, idx.to(torch.int32), _found(scores)
+    return vals, idx.to(torch.int32), found
 
 
 def exact_rescore(post_doc, post_score, starts, dfs, weights, cand, *,
@@ -267,19 +270,22 @@ def heavy_scores(dense_rows, unique_rows, mix, dtype=torch.float32):
     return torch.matmul(mix, d_sub).to(dtype)
 
 
-def tiled_topk(scores, k2: int, tile: int = 2048):
+def tiled_topk(scores, k2: int, tile: int = 2048, tile_max=None):
     """Exact top-k2 over a wide doc axis via tile-max prefiltering (port of
     tiled_topk): a doc in the true top k2 lies in one of the k2 tiles with
     the largest maxima, so top-k inside those tiles, taken in slot order, is
-    exact while scanning k2 * tile instead of n_slots entries. Returns
-    (vals, doc slots int32)."""
+    exact while scanning k2 * tile instead of n_slots entries. tile_max:
+    the [Q, n_slots // tile] maxima where the caller has them
+    (score_epilogue's), else taken here. Returns (vals, doc slots int32)."""
     q, ns = scores.shape
     if ns % tile != 0 or ns <= k2 * tile:
         vals, idx = topk_low_index(scores, k2)
         return vals, idx.to(torch.int32)
     n_tiles = ns // tile
     tiles = scores.view(q, n_tiles, tile)
-    _tv, tidx = topk_low_index(tiles.amax(dim=2), k2)
+    if tile_max is None:
+        tile_max = tiles.amax(dim=2)
+    _tv, tidx = topk_low_index(tile_max, k2)
     # slot-ascending tile order keeps the doc-ascending tie-break of the
     # flat top-k below
     tidx, _ = torch.sort(tidx, dim=1)
@@ -289,28 +295,32 @@ def tiled_topk(scores, k2: int, tile: int = 2048):
     return vals, (base + pos % tile).to(torch.int32)
 
 
-def _fused_tail(post_doc, post_score, scores, starts, dfs, weights, *,
-                n_slots: int, K: int, K2: int, bs_steps: int):
-    """found, then the exact rescore and canonical order of the top K2
-    candidates of pass-1 scores. Returns (vals [Q, K], docs int32, found)."""
-    found = _found(scores)
-    _fv, cand = tiled_topk(scores, min(K2, n_slots))
+def _fused_tail(post_doc, post_score, scores, tile_max, starts, dfs,
+                weights, *, n_slots: int, K: int, K2: int, bs_steps: int):
+    """The exact rescore and canonical order of the top K2 candidates of
+    pass-1 scores (tile_max: their tile maxima, or None). Returns (vals
+    [Q, K], docs int32)."""
+    _fv, cand = tiled_topk(scores, min(K2, n_slots), tile_max=tile_max)
     exact = exact_rescore(post_doc, post_score, starts, dfs, weights, cand,
                           bs_steps=bs_steps)
     sval, sdoc = canonical_sort(exact, cand)
-    return sval[:, :K], sdoc[:, :K], found
+    return sval[:, :K], sdoc[:, :K]
 
 
 def _fused_scores(post_doc, post_score, dense_rows, starts, light_dfs,
                   weights, unique_heavy, heavy_mix, *, n_slots: int, C: int,
                   block: int, dtype):
-    """Pass 1 of the fused mode: the light terms' scatter plus the heavy
-    rows' product, added in place."""
+    """Pass 1 of the fused mode: the light terms' scatter, then the heavy
+    rows' f32 product added into it in place by score_epilogue, which
+    rounds it to `dtype` as heavy_scores(..., dtype) would, counts found
+    and takes the tile maxima in the same pass. Returns (scores, found,
+    tile_max)."""
     chunks = expand_chunks(starts, light_dfs, weights, C=C, block=block)
     scores = scatter_scores(post_doc, post_score, *chunks, Q=starts.shape[0],
                             n_slots=n_slots, block=block, dtype=dtype)
-    return scores.add_(heavy_scores(dense_rows, unique_heavy, heavy_mix,
-                                    dtype=dtype))
+    found, tile_max = score_epilogue(
+        scores, heavy_scores(dense_rows, unique_heavy, heavy_mix))
+    return scores, found, tile_max
 
 
 def bm25_topk_fused(post_doc, post_score, dense_rows, starts, dfs, weights,
@@ -326,12 +336,14 @@ def bm25_topk_fused(post_doc, post_score, dense_rows, starts, dfs, weights,
     exactly and orders them (score desc, doc slot asc). `found` is exact in
     any order: every contribution is positive. Returns (vals f32 [Q, K],
     idx int32 [Q, K], found int32 [Q])."""
-    scores = _fused_scores(post_doc, post_score, dense_rows, starts,
-                           light_dfs, weights, unique_heavy, heavy_mix,
-                           n_slots=n_slots, C=C, block=block,
-                           dtype=torch.float32)
-    return _fused_tail(post_doc, post_score, scores, starts, dfs, weights,
-                       n_slots=n_slots, K=K, K2=K2, bs_steps=bs_steps)
+    scores, found, tile_max = _fused_scores(
+        post_doc, post_score, dense_rows, starts, light_dfs, weights,
+        unique_heavy, heavy_mix, n_slots=n_slots, C=C, block=block,
+        dtype=torch.float32)
+    vals, docs = _fused_tail(post_doc, post_score, scores, tile_max, starts,
+                             dfs, weights, n_slots=n_slots, K=K, K2=K2,
+                             bs_steps=bs_steps)
+    return vals, docs, found
 
 
 def bm25_search_packed(post_doc, post_score, dense_rows, plan_ints, plan_f32,
@@ -352,12 +364,12 @@ def bm25_search_packed(post_doc, post_score, dense_rows, plan_ints, plan_f32,
     weights = plan_f32[:q, :t].contiguous()
     heavy_mix = plan_f32[:q, t:].contiguous()
     unique_heavy = plan_f32[q, t:].to(torch.int32)
-    scores = _fused_scores(
+    scores, found, tile_max = _fused_scores(
         post_doc, post_score, dense_rows, starts, light_dfs, weights,
         unique_heavy, heavy_mix, n_slots=n_slots, C=C, block=block,
         dtype=torch.bfloat16 if scores_bf16 else torch.float32)
-    vals, docs, found = _fused_tail(
-        post_doc, post_score, scores, starts, dfs, weights, n_slots=n_slots,
-        K=K, K2=K2, bs_steps=bs_steps)
+    vals, docs = _fused_tail(
+        post_doc, post_score, scores, tile_max, starts, dfs, weights,
+        n_slots=n_slots, K=K, K2=K2, bs_steps=bs_steps)
     return torch.cat([vals, docs.to(torch.float32),
                       found[:, None].to(torch.float32)], dim=1)

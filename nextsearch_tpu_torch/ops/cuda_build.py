@@ -45,6 +45,7 @@ _SIGNATURES = {
                          _cll, _vp],
     "ns_gather_rows": [_vp, _vp, _ci, _vp, _ci, _ci, _ci, _cll, _ci, _vp],
     "ns_per_query_topk": [_vp, _vp, _cll, _ci, _ci, _vp, _vp, _ci, _vp],
+    "ns_score_epilogue": [_vp, _vp, _ci, _ci, _cll, _cll, _vp, _vp, _ci, _vp],
     "ns_probe_nt_dot": [_vp, _vp, _vp, _ci, _ci, _ci, _vp],
     "ns_probe_row_copy": [_vp, _vp, _vp, _ci, _ci, _ci, _vp],
     "ns_probe_window_op": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp],

@@ -6,11 +6,12 @@ arrays, dense rows and doc slots; the query batch is split over the `dp`
 axis. Each (dp group, shard) local step scores its shard with the
 single-device kernels (sparse: ops/bm25_sparse.packed_impl, the production
 launch; exact: score_only_exact; fused: the scatter + heavy product +
-exact rescore of ops/bm25.py), takes a local top-k, and the shards'
-candidate lists are merged per group: the reference's all_gather is a copy
-of each shard's [Qd, k2] candidates to the group's first device and a cat,
-its psum of `found` a sum and its pmin of the fast path's guard a min,
-followed by one canonical (score desc, global slot asc) sort. One Python
+exact rescore of ops/bm25.py; both count found with score_epilogue),
+takes a local top-k, and the shards' candidate lists are merged per
+group: the reference's all_gather is a copy of each shard's [Qd, k2]
+candidates to the group's first device and a cat, its psum of `found` a
+sum and its pmin of the fast path's guard a min, followed by one
+canonical (score desc, global slot asc) sort. One Python
 process holds the mesh, plans each batch and launches every local step on
 its device (the reference is a single controller too: one process, one
 shard_map step over every device).
@@ -64,6 +65,7 @@ from ..ops.bm25 import (
 )
 from ..ops.bm25_sparse import LIGHT_BUCKET_LOG2, packed_impl, two_level_sort2
 from ..ops.graphs import LaunchCache
+from ..ops.score_kernels import score_epilogue
 from ..utils.logging import log
 from .mesh import Mesh
 
@@ -133,6 +135,7 @@ def local_step(tab: _Tables, pi: torch.Tensor, *, mode: str, T: int, U: int,
         scores = score_only_exact(tab.post_doc, tab.post_score, starts, dfs,
                                   weights, n_slots=n_slots, block=block,
                                   max_df=max_df)
+        found, _ = score_epilogue(scores, tiles=False)
         vals, idx = topk_low_index(scores, min(K, n_slots))
     else:
         light_dfs = pi[:, 2 * T:3 * T]
@@ -141,12 +144,13 @@ def local_step(tab: _Tables, pi: torch.Tensor, *, mode: str, T: int, U: int,
         chunks = expand_chunks(starts, light_dfs, weights, C=C, block=block)
         scores = scatter_scores(tab.post_doc, tab.post_score, *chunks, Q=Qd,
                                 n_slots=n_slots, block=block)
-        scores = scores + heavy_scores(tab.dense_rows, unique_heavy, heavy_mix)
-        _fv, idx = tiled_topk(scores, min(K2, n_slots))
+        # the add, found and the tile maxima in one pass, as the fused launch
+        found, tile_max = score_epilogue(
+            scores, heavy_scores(tab.dense_rows, unique_heavy, heavy_mix))
+        _fv, idx = tiled_topk(scores, min(K2, n_slots), tile_max=tile_max)
         exact = exact_rescore(tab.post_doc, tab.post_score, starts, dfs,
                               weights, idx)
         vals, idx = canonical_sort(exact, idx)
-    found = (scores > 0).sum(dim=1, dtype=torch.int32)
     return vals, idx, found, guard
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's three sparse paths and on its fused
-mode (the library default), on one CUDA card, with the launches run
-eagerly and as CUDA graphs.
+mode (the library default), and on request its exact and fast modes, on
+one CUDA card, with the launches run eagerly and as CUDA graphs.
 
     python3 profile_paths.py [--serial 10] [--loop 100] [--paths P,...]
                              [--turns eager,graphed,graphed,eager] [--out FILE]
@@ -11,7 +11,11 @@ Run from the root of a checkout. Builds chip_smoke.py's bench index (1M
 docs, 200k-term Zipf vocabulary, batch 512, k 10) in sparse mode and, for
 each of its paths (default packed launch, ``unified=True``,
 ``NEXTSEARCH_SELECT_PALLAS=1``), then in fused mode for the one fused path,
-measures each of ``--turns`` in order: ``eager`` swaps in a launch cache
+measures each of ``--turns`` in order. ``--paths`` names the paths (default
+the four above); ``exact`` and ``fast`` run the fused index in exact and
+fast mode at the library's posting block of 2048 on the first 64 queries
+of each batch, as chip_smoke.py's (n) and (o) (exact mode stays eager, so
+its two turns differ only in noise). Each path and turn: ``eager`` swaps in a launch cache
 built under NEXTSEARCH_CUDA_GRAPHS=0, ``graphed`` the path's own launch
 cache (ops/graphs.py), whose first turn captures the path's graphs and
 whose later turns replay them. Each turn first warms on three batches
@@ -78,7 +82,12 @@ PATHS = (
     ("unified", "sparse", {"unified": True}, {}),
     ("K4", "sparse", {}, {"NEXTSEARCH_SELECT_PALLAS": "1"}),
     ("fused", "fused", {}, {}),
+    ("exact", "fused", {"mode": "exact", "posting_block": 2048}, {}),
+    ("fast", "fused", {"mode": "fast", "posting_block": 2048}, {}),
 )
+DEFAULT_PATHS = "default,unified,K4,fused"
+# queries a batch where a path takes fewer than the index's batch
+PATH_BATCH = {"exact": 64, "fast": 64}
 
 
 def pipelined(ti, batches, n: int, k: int) -> dict:
@@ -224,6 +233,7 @@ def memory_turn(name: str, n_loop: int) -> dict:
     _seg, ti, batches = cs.build_index(device, cs.N_DOCS, cs.VOCAB, cs.BATCH,
                                        64, mode=mode)
     ti.config = replace(ti.config, device=replace(ti.config.device, **fields))
+    batches = [b[:PATH_BATCH.get(name, cs.BATCH)] for b in batches]
     index = _held(device)
     torch.cuda.reset_peak_memory_stats(device)
     with mock.patch.dict(os.environ, env):
@@ -265,7 +275,7 @@ def main() -> int:
     ap.add_argument("--serial", type=int, default=10)
     ap.add_argument("--loop", type=int, default=100)
     ap.add_argument("--turns", default="eager,graphed,graphed,eager")
-    ap.add_argument("--paths", default=",".join(p[0] for p in PATHS))
+    ap.add_argument("--paths", default=DEFAULT_PATHS)
     ap.add_argument("--memory", action="store_true")
     ap.add_argument("--memory-of", help=argparse.SUPPRESS)  # one path
     ap.add_argument("--out")
@@ -306,11 +316,13 @@ def main() -> int:
             cfg, built = ti.config, mode
         ti.config = replace(cfg, device=replace(cfg.device, **fields))
         caches = dict(eager=eager_cache(device), graphed=LaunchCache(device))
+        nq = PATH_BATCH.get(name, cs.BATCH)
+        path_batches = [b[:nq] for b in batches]
         with mock.patch.dict(os.environ, env):
             for turn in args.turns.split(","):
                 ti.launch_cache = caches[turn]
-                r = dict(path=name, launch=turn, card=card,
-                         **profile_path(ti, batches, cs.K, args.serial,
+                r = dict(path=name, launch=turn, card=card, batch=nq,
+                         **profile_path(ti, path_batches, cs.K, args.serial,
                                         args.loop))
                 print(json.dumps(r), flush=True)
                 results.append(r)

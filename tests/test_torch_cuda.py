@@ -17,7 +17,10 @@ P3 within 1e-6 (a few entries per cell at most) and, in its own test,
 both of its kernels bit for bit against np.add.at; K4's threshold select
 and its first kernel on cases aimed at the select's steps; P2, P4 and P5
 bit for bit; K3's two copy kernels bit for bit, and P1's tiled kernel at ragged
-shapes. The whole TorchIndex on
+shapes. score_epilogue bit for bit (scores, found, tile_max) against its
+plain version at odd shapes, off 16-byte alignment and at Q 512 x
+1,001,472, once per fused, exact and fast launch, and replayed by a graphed
+fused launch. The whole TorchIndex on
 the card, on the packed, unified and windowed-selection paths and with bf16
 dense rows, and in the fused, exact and fast modes, is held against the same
 index on the CPU and against the oracle. The prefix top-k, similarity top-k
@@ -1143,3 +1146,151 @@ def test_graphs_on_two_cards_replay_bit_equal_to_eager(cuda):
         _bits_equal(si.search_batch(b, k=10), want)
     assert {d: c.captures for d, c in graphed.items()} == caps
     assert all(c.replays >= len(batches) for c in graphed.values())
+
+
+# ------------------------------------------------------------ score epilogue
+
+
+def _epilogue_operands(q, n, dtype, seed, dev, offset=0):
+    """Pass-1-like scores (30% positive, the rest +0) and an f32 heavy
+    product on the card; offset > 0 shifts both off 16-byte alignment."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.where(torch.rand(q, n, generator=g, device=dev) < 0.3,
+                    torch.rand(q, n, generator=g, device=dev) * 9,
+                    torch.zeros((), device=dev))
+    h = torch.where(torch.rand(q, n, generator=g, device=dev) < 0.2,
+                    torch.rand(q, n, generator=g, device=dev) * 5,
+                    torch.zeros((), device=dev))
+    if offset:
+        sb = torch.zeros(q * n + offset, dtype=dtype, device=dev)
+        hb = torch.zeros(q * n + offset, device=dev)
+        sb[offset:] = s.reshape(-1).to(dtype)
+        hb[offset:] = h.reshape(-1)
+        return sb[offset:].view(q, n), hb[offset:].view(q, n)
+    return s.to(dtype), h
+
+
+def _epilogue_bits_equal(scores, heavy, tile=2048, tiles=True):
+    from nextsearch_tpu_torch.ops import score_kernels as se
+
+    ref, got = scores.clone(), scores
+    n0 = se.score_epilogue.launches
+    found, tile_max = se.score_epilogue(got, heavy, tile=tile, tiles=tiles)
+    assert se.score_epilogue.launches == n0 + 1
+    rfound, rmax = se.score_epilogue_ref(ref, heavy, tile=tile, tiles=tiles)
+    torch.cuda.synchronize()
+    ib = torch.int16 if scores.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(ib), ref.view(ib))
+    assert found.dtype == torch.int32 and torch.equal(found, rfound)
+    assert (tile_max is None) == (rmax is None)
+    if rmax is not None:
+        assert tile_max.dtype == scores.dtype
+        assert torch.equal(tile_max.view(ib), rmax.view(ib))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("q,n,tile,offset", [
+    (3, 777, 37, 0), (5, 2048 * 3, 2048, 0), (7, 5001, 2048, 0),
+    (2, 96, 32, 0), (4, 4099, 2048, 1), (6, 6144, 2048, 3), (1, 9, 3, 0),
+])
+@pytest.mark.parametrize("with_heavy", [True, False])
+def test_score_epilogue_small_shapes_bit_exact(cuda, dtype, q, n, tile, offset,
+                                               with_heavy):
+    """Odd N (scalar heads and tails), tiles that do and do not divide N,
+    operands off 16-byte alignment (the all-scalar path), with and without
+    H: scores' bits, found and tile_max equal to the plain version's."""
+    s, h = _epilogue_operands(q, n, dtype, q * n + tile, cuda, offset)
+    _epilogue_bits_equal(s, h if with_heavy else None, tile=tile)
+    _epilogue_bits_equal(s, None, tile=tile, tiles=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_score_epilogue_at_the_1m_shape_bit_exact(cuda, dtype):
+    """Q 512 x n_slots 1,001,472 (the bench fused index): the fused launch's
+    form, then the found-only form of exact and fast mode."""
+    s, h = _epilogue_operands(512, 1_001_472, dtype, 11, cuda)
+    _epilogue_bits_equal(s, h)
+    _epilogue_bits_equal(s, None, tiles=False)
+
+
+@pytest.mark.cuda
+def test_score_epilogue_rejects_what_the_kernel_does_not_take(cuda):
+    from nextsearch_tpu_torch.ops import score_kernels as se
+
+    s = torch.zeros((4, 64), device=cuda)
+    h = torch.zeros((4, 64), device=cuda)
+    n0 = se.score_epilogue.launches
+    for bad_s, bad_h, err in (
+            (s.half(), h, TypeError), (s.double(), None, TypeError),
+            (s, h.to(torch.bfloat16), TypeError), (s, h[:, :32], TypeError),
+            (torch.zeros((64, 4), device=cuda).T, None, ValueError),
+            (s, torch.zeros((64, 4), device=cuda).T, ValueError),
+            (s, h.cpu(), ValueError)):
+        with pytest.raises(err):
+            se.score_epilogue(bad_s, bad_h)
+    assert se.score_epilogue.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kw", [("fused", {}), ("fused", {"scores_bf16": True}),
+                                     ("exact", {}), ("fast", {})])
+def test_every_launch_runs_score_epilogue_once(cuda, mode, kw):
+    """Eagerly, each fused, exact and fast launch launches score_epilogue
+    once, and the fused one K3 once beside it; the sharded fused step once
+    per shard."""
+    from nextsearch_tpu_torch.benchmarks.common import eager_cache
+    from nextsearch_tpu_torch.config import DeviceConfig, EngineConfig
+    from nextsearch_tpu_torch.index.segment import TorchIndex
+    from nextsearch_tpu_torch.ops import heavy_kernels as hk
+    from nextsearch_tpu_torch.ops import score_kernels as se
+    from nextsearch_tpu_torch.parallel.mesh import make_mesh
+    from nextsearch_tpu_torch.parallel.sharded import ShardedIndex
+    from nextsearch_tpu_torch.tools.synthetic import build_corpus, sample_queries
+
+    seg, probs = build_corpus(20000, 3000)
+    cfg = EngineConfig(device=DeviceConfig(
+        mode=mode, posting_block=64, dense_df_ratio=1 / 256,
+        heavy_buckets=(64,), **kw))
+    ti = TorchIndex([seg], config=cfg, device=cuda)
+    ti.launch_cache = eager_cache(cuda)
+    for batch in sample_queries(probs, 3 * 64, 64, seed=3):
+        n0, k0 = se.score_epilogue.launches, hk.gather_rows.launches
+        ti.search_batch(batch, k=10)
+        assert se.score_epilogue.launches == n0 + 1
+        assert hk.gather_rows.launches == k0 + (mode == "fused")
+    if mode != "fused" or kw:
+        return
+    seg1, _p = build_corpus(9000, 3000, seed=2)
+    si = ShardedIndex([seg, seg1], make_mesh(1, 2, devices=[cuda] * 2),
+                      config=cfg)
+    si.launch_caches = {d: eager_cache(d) for d in si.launch_caches}
+    n0 = se.score_epilogue.launches
+    si.search_batch(batch, k=10)
+    assert se.score_epilogue.launches == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_bf16", [False, True])
+def test_graphed_fused_launch_replays_score_epilogue(cuda, scores_bf16):
+    """The fused launch graphed against the same index run eagerly: bit
+    for bit, and score_epilogue's counter advanced by one per replay."""
+    from nextsearch_tpu_torch.benchmarks.common import eager_cache
+    from nextsearch_tpu_torch.ops import score_kernels as se
+
+    _seg, ti, batches = _graph_index(cuda, "fused", scores_bf16=scores_bf16)
+    graphed, eager = ti.launch_cache, eager_cache(cuda)
+    ti.warm_batch(batches[1], k=10)
+    caps = graphed.captures
+    for batch in batches[1:]:
+        ti.launch_cache = eager
+        want = ti.search_batch(batch, k=10)
+        ti.launch_cache = graphed
+        n0, r0 = se.score_epilogue.launches, graphed.replays
+        _bits_equal(ti.search_batch(batch, k=10), want)
+        assert graphed.replays == r0 + 1
+        assert se.score_epilogue.launches == n0 + 1
+    assert graphed.captures == caps == 1

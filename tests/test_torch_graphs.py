@@ -148,10 +148,12 @@ def test_counters_are_registered_by_their_modules():
     own module put it, and nowhere twice."""
     from nextsearch_tpu_torch.ops import bm25_sparse, cuda_build
     from nextsearch_tpu_torch.ops import probe_kernels as pk
+    from nextsearch_tpu_torch.ops import score_kernels as se
     from nextsearch_tpu_torch.ops import select_kernels as sk
 
     want = {(id(fn), "launches") for fn in (*hk._WRAPPERS, *pk._WRAPPERS,
-                                            sk.per_query_topk)}
+                                            sk.per_query_topk,
+                                            se.score_epilogue)}
     want.add((id(bm25_sparse.topk_quantized_reduce), "calls"))
     got = [(id(obj), attr) for obj, attr in cuda_build.COUNTERS]
     assert set(got) == want and len(got) == len(want)
