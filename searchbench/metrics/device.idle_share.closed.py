@@ -1,0 +1,8 @@
+"""device.idle_share.closed: percent of the traced stretch in which no
+kernel, copy or memset ran on the card."""
+
+
+def read(run):
+    if run.trace is None or run.trace["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
