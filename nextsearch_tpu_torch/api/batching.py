@@ -14,6 +14,12 @@ dispatch via Engine.search_batch_async) BEFORE gathering batch N, so the
 hidden behind device execution instead of serialized after it. Depth 2 is
 enough (probe_depth.py: 13,988/13,997 QPS at depths 2/8; deeper queues only
 add wait time).
+
+Tracing (utils/profiling.GLOBAL_TRACER): the dispatcher numbers its
+launches with batch ids and sets each around its launch and gather, so
+the spans below them carry it; each unit's wait from its submit to the
+launch that takes it is a span `<name>.queue`, and each coalescing window
+that forms a batch a span `<name>.form`.
 """
 
 from __future__ import annotations
@@ -26,12 +32,14 @@ from concurrent.futures import Future
 from typing import List, Optional, Tuple
 
 from ..config import BatchingConfig
+from ..utils.profiling import GLOBAL_TRACER
 
-# A queue unit: (requests, future, multi). `multi` units carry a LIST of
-# requests resolved by ONE future (the batched HTTP endpoint) — per-request
-# future wakeups cost ~40us each on the 1-core host, so a 512-query HTTP
-# batch pays one wakeup instead of 512.
-_Unit = Tuple[list, Future, bool]
+# A queue unit: (requests, future, multi, submitted). `multi` units carry a
+# LIST of requests resolved by ONE future (the batched HTTP endpoint) —
+# per-request future wakeups cost ~40us each on the 1-core host, so a
+# 512-query HTTP batch pays one wakeup instead of 512. `submitted` is the
+# perf_counter_ns of its submit.
+_Unit = Tuple[list, Future, bool, int]
 
 
 class MicroBatcher:
@@ -59,6 +67,8 @@ class MicroBatcher:
         self.gather_fn = gather_fn
         self.depth = max(1, int(depth))
         self.config = config
+        self._queue_span = f"{name}.queue"
+        self._form_span = f"{name}.form"
         self._q: "queue.Queue[_Unit]" = queue.Queue()
         # One-slot pushback buffer: a unit that would overflow max_batch is
         # held here for the NEXT window instead of being appended (only the
@@ -74,7 +84,7 @@ class MicroBatcher:
 
     def submit(self, request) -> Future:
         fut: Future = Future()
-        self._q.put(([request], fut, False))
+        self._q.put(([request], fut, False, time.perf_counter_ns()))
         return fut
 
     def submit_many(self, requests: list) -> Future:
@@ -85,7 +95,7 @@ class MicroBatcher:
         split across launches by the caller (see SearchBatcher.search_many).
         """
         fut: Future = Future()
-        self._q.put((list(requests), fut, True))
+        self._q.put((list(requests), fut, True, time.perf_counter_ns()))
         return fut
 
     def call(self, request):
@@ -93,7 +103,7 @@ class MicroBatcher:
 
     def shutdown(self) -> None:
         self._stop.set()
-        self._q.put(([], None, False))  # wake the dispatcher
+        self._q.put(([], None, False, 0))  # wake the dispatcher
         self._thread.join(timeout=2)
 
     # ---------------- internals ----------------
@@ -166,7 +176,7 @@ class MicroBatcher:
     @staticmethod
     def _resolve(units: List[_Unit], results) -> None:
         pos = 0
-        for reqs, fut, multi in units:
+        for reqs, fut, multi, _t in units:
             n = len(reqs)
             if fut.done():
                 pos += n
@@ -179,7 +189,7 @@ class MicroBatcher:
 
     @staticmethod
     def _fail(units: List[_Unit], exc: Exception) -> None:
-        for _reqs, fut, _multi in units:
+        for _reqs, fut, _multi, _t in units:
             if fut is not None and not fut.done():
                 fut.set_exception(exc)
 
@@ -198,40 +208,58 @@ class MicroBatcher:
                 break
         self._fail(leftovers, exc)
 
+    def _take(self, units: List[_Unit], formed_from: int) -> int:
+        """Number the launch that takes `units` and record, under its batch
+        id, the window that formed it (from `formed_from`) and each unit's
+        wait since its submit."""
+        bid = GLOBAL_TRACER.new_batch()
+        now = time.perf_counter_ns()
+        GLOBAL_TRACER.add(self._form_span, formed_from, now, batch=bid)
+        for unit in units:
+            GLOBAL_TRACER.add(self._queue_span, unit[3], now, batch=bid)
+        return bid
+
     def _run(self) -> None:
         while not self._stop.is_set():
+            t0 = time.perf_counter_ns()
             units = self._drain(block=True)
             if not units:
                 continue
-            flat = [r for reqs, _f, _m in units for r in reqs]
+            bid = self._take(units, t0)
+            flat = [r for reqs, _f, _m, _t in units for r in reqs]
             try:
-                results = self.batch_fn(flat)
+                with GLOBAL_TRACER.batch(bid):
+                    results = self.batch_fn(flat)
                 self._resolve(units, results)
             except Exception as e:  # propagate to all waiters
                 self._fail(units, e)
         self._abandon_remaining()
 
     def _run_pipelined(self) -> None:
-        inflight: deque = deque()  # (units, state)
+        inflight: deque = deque()  # (units, state, batch id)
         while not (self._stop.is_set() and not inflight):
             units = []
             if len(inflight) < self.depth and not self._stop.is_set():
                 # Block only when the pipe is empty; with work in flight a
                 # dry queue should fall through to the gather immediately.
+                t0 = time.perf_counter_ns()
                 units = self._drain(block=not inflight)
             if units:
-                flat = [r for reqs, _f, _m in units for r in reqs]
+                bid = self._take(units, t0)
+                flat = [r for reqs, _f, _m, _t in units for r in reqs]
                 try:
-                    state = self.launch_fn(flat)
+                    with GLOBAL_TRACER.batch(bid):
+                        state = self.launch_fn(flat)
                 except Exception as e:
                     self._fail(units, e)
                 else:
-                    inflight.append((units, state))
+                    inflight.append((units, state, bid))
                 continue
             if inflight:
-                done_units, state = inflight.popleft()
+                done_units, state, bid = inflight.popleft()
                 try:
-                    results = self.gather_fn(state)
+                    with GLOBAL_TRACER.batch(bid):
+                        results = self.gather_fn(state)
                     self._resolve(done_units, results)
                 except Exception as e:
                     self._fail(done_units, e)

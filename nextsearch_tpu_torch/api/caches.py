@@ -8,6 +8,10 @@ Parity contract (reference: src/api_engine.cpp:195-366 and :545-806):
   - load() places file order as oldest-first recency
 Keys: search/overview "query|k" (src/api_engine.cpp:190-192), summary
 "summary|cord_uid" (src/api_ai_summary.cpp:96).
+
+Each cache counts `<tag>.hits`, `<tag>.misses`, `<tag>.evictions` and
+`<tag>.flushes` (writes of its file) in utils/profiling.GLOBAL_TRACER, and
+each write is a span `<tag>.flush`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from pathlib import Path
 from typing import Any, Optional
 
 from ..utils.logging import log
+from ..utils.profiling import GLOBAL_TRACER
 
 
 def make_cache_key(query: str, k: int) -> str:
@@ -76,6 +81,9 @@ class LRUCache:
         self.persist_path = Path(persist_path) if persist_path else None
         self.save_interval = max(1, int(save_interval))
         self.tag = tag
+        # counter names, made once: a probe and a fill count per query
+        self._hits, self._misses, self._evictions = (
+            f"{tag}.hits", f"{tag}.misses", f"{tag}.evictions")
         self._data: "OrderedDict[str, Any]" = OrderedDict()  # newest last
         self._updates_since_save = 0
         self._lock = threading.Lock()
@@ -98,7 +106,9 @@ class LRUCache:
         return re-tagged with cached=True."""
         with self._lock:
             if key not in self._data:
+                GLOBAL_TRACER.count(self._misses)
                 return None
+            GLOBAL_TRACER.count(self._hits)
             self._data.move_to_end(key)
             raw = self._data[key]
             if isinstance(raw, Rendered):
@@ -116,6 +126,7 @@ class LRUCache:
                 return
             if len(self._data) >= self.capacity:
                 self._data.popitem(last=False)
+                GLOBAL_TRACER.count(self._evictions)
             self._data[key] = result
             if self._flush_ms > 0:
                 self._dirty = True
@@ -142,25 +153,27 @@ class LRUCache:
     def _save(self, snapshot) -> None:
         if self.persist_path is None:
             return
-        try:
-            # Rendered fragments persist as their parsed objects so the
-            # on-disk format stays the reference's {key, result} JSON
-            payload = [
-                {
-                    "key": k,
-                    "result": (
-                        json.loads(v.fragment)
-                        if isinstance(v, Rendered)
-                        else v
-                    ),
-                }
-                for k, v in snapshot
-            ]
-            tmp = self.persist_path.with_suffix(".tmp")
-            tmp.write_text(json.dumps(payload, indent=2), encoding="utf-8")
-            tmp.replace(self.persist_path)
-        except OSError as e:
-            log(self.tag, f"Error saving cache: {e}", level="error")
+        GLOBAL_TRACER.count(f"{self.tag}.flushes")
+        with GLOBAL_TRACER.span(f"{self.tag}.flush"):
+            try:
+                # Rendered fragments persist as their parsed objects so the
+                # on-disk format stays the reference's {key, result} JSON
+                payload = [
+                    {
+                        "key": k,
+                        "result": (
+                            json.loads(v.fragment)
+                            if isinstance(v, Rendered)
+                            else v
+                        ),
+                    }
+                    for k, v in snapshot
+                ]
+                tmp = self.persist_path.with_suffix(".tmp")
+                tmp.write_text(json.dumps(payload, indent=2), encoding="utf-8")
+                tmp.replace(self.persist_path)
+            except OSError as e:
+                log(self.tag, f"Error saving cache: {e}", level="error")
 
     def save(self) -> None:
         with self._lock:

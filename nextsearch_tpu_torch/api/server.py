@@ -364,12 +364,19 @@ class ApiHandler(BaseHTTPRequestHandler):
 
     def _handle_stats(self):
         stats = self.ctx.stats.get_stats_json(self.ctx.feedback)
-        # extension: ?timings=1 adds framework span timings + index info
+        # extension: ?timings=1 adds the tracer's span totals and counters,
+        # the launch graphs' captures and replays, and index info
         if self._params().get("timings") == "1":
             from ..utils.profiling import GLOBAL_TRACER
 
-            stats["engine_timings"] = GLOBAL_TRACER.report()
+            timings = GLOBAL_TRACER.report()
             idx = self.ctx.engine.index
+            caches = idx.launch_caches.values() if idx is not None else ()
+            timings["launch_graphs"] = {
+                "captures": sum(c.captures for c in caches),
+                "replays": sum(c.replays for c in caches),
+            }
+            stats["engine_timings"] = timings
             if idx is not None:
                 stats["index"] = {
                     "segments": len(self.ctx.engine.seg_names),

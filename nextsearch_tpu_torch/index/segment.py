@@ -32,13 +32,26 @@ windows per term slot are a static that changes every batch, runs
 eagerly. Results come back through a non-blocking copy into a pinned host
 buffer and a CUDA event that search_batch_gather waits on, so the host can
 plan and launch the next batch while this one runs.
+
+Spans (utils/profiling.GLOBAL_TRACER), one per batch: index.launch around
+index.plan (shortcuts, the planner, chunk budgets, plan packing) and
+index.enqueue (uploads, the replay or eager launch, the copy-out); and
+index.gather around index.wait (the event sync), index.rescue,
+index.relaunch and index.unpack. While the tracer records, on a card,
+each launch also times the card's idle gap before it: a timing event
+after its plan uploads, just before its launch, and its copy-out's event
+with timing; at its gather the gap from the previous launch's end to its
+start is a span device.idle, ending where the start event was enqueued on
+the host clock (a gap above 0 means the stream was empty then, so the
+event ran at its enqueue). The uploads are a few kB, so the gap spans the
+host's enqueue of them, during which the card idles.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +64,7 @@ from ..ops.bm25_sparse import (
 )
 from ..ops.graphs import LaunchCache
 from ..utils.logging import log
+from ..utils.profiling import GLOBAL_TRACER
 from .builder import SegmentArrays, eager_scores
 from .device_build import (
     build_heavy_on_device, build_light_on_device, build_row_topk_on_device,
@@ -65,22 +79,39 @@ from .planner import (
     _round_up,
 )
 
+
+class _IdleMark(NamedTuple):
+    """A launch's start on the card, for its idle gap (device.idle): a
+    timing event recorded after its plan uploads, just before its launch,
+    the perf_counter_ns at which it was enqueued, the previous launch's end
+    event (None where that one was not timed) and the batch id."""
+
+    start: "torch.cuda.Event"
+    t_ns: int
+    prev_end: Optional["torch.cuda.Event"]
+    batch: Optional[int]
+
+
 class _HostCopy:
     """Results on their way to the host: a non-blocking copy of each tensor
     into a pinned buffer plus the CUDA event that marks their completion
     (on the CPU the tensors are already host memory). device_outs keeps the
     tensors themselves, so a consumer on the device (the hybrid rerank)
-    chains on them without a round trip through the host."""
+    chains on them without a round trip through the host. With a start
+    `mark` the event is timed, and the first wait records the card's idle
+    gap before the launch (device.idle)."""
 
-    def __init__(self, *outs: torch.Tensor):
+    def __init__(self, *outs: torch.Tensor,
+                 mark: Optional[_IdleMark] = None):
         self.device_outs = list(outs)
+        self.mark = mark
         if outs[0].device.type == "cuda":
             self.hosts = [
                 torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
                     o, non_blocking=True)
                 for o in outs
             ]
-            self.event = torch.cuda.Event()
+            self.event = torch.cuda.Event(enable_timing=mark is not None)
             self.event.record(torch.cuda.current_stream(outs[0].device))
         else:
             self.hosts = list(outs)
@@ -91,6 +122,12 @@ class _HostCopy:
         one), once the card has written them."""
         if self.event is not None:
             self.event.synchronize()
+            mark, self.mark = self.mark, None
+            if mark is not None and mark.prev_end is not None:
+                gap_ns = max(0, int(
+                    mark.prev_end.elapsed_time(mark.start) * 1e6))
+                GLOBAL_TRACER.add("device.idle", mark.t_ns - gap_ns,
+                                  mark.t_ns, batch=mark.batch)
         return [h.numpy() for h in self.hosts]
 
 
@@ -153,6 +190,7 @@ class TorchIndex(SparsePlanner):
         self.config = config
         # the sparse, fused and fast launches, one CUDA graph per key
         self.launch_cache = LaunchCache(self.device)
+        self._last_end = None  # the last timed launch's end event
         self._pins: Dict[str, int] = {}
         self._qpins: Dict[int, Dict[str, int]] = {}
         self._shortcut_memo: Dict = {}
@@ -470,180 +508,224 @@ class TorchIndex(SparsePlanner):
         hides the host's planning behind the card's work. shortcut=False
         disables the sparse mode's host-side 1-term and rescue-memo
         answers."""
-        nq = len(queries)
-        if nq == 0 or self.n_docs == 0:
-            return ("empty", nq)
-        dcfg = self.config.device
-        if dcfg.mode == "sparse":
-            return self._search_sparse_async(queries, k, shortcut=shortcut)
+        with GLOBAL_TRACER.span("index.launch"):
+            nq = len(queries)
+            if nq == 0 or self.n_docs == 0:
+                return ("empty", nq)
+            if self.config.device.mode == "sparse":
+                return self._search_sparse_async(queries, k, shortcut)
+            return self._search_full_async(queries, k)
 
-        K = min(_bucket(max(k, 1), self.K_BUCKETS), self.n_slots)
-        starts, dfs, weights, light_dfs, unique_heavy, heavy_mix = (
-            self.plan_full(queries)
-        )
+    def _idle_mark(self) -> Optional[_IdleMark]:
+        """This launch's start mark while the tracer records on a card,
+        taking the last timed launch's end as the previous one; None
+        otherwise, and then no event gets timing."""
+        prev, self._last_end = self._last_end, None
+        if self.device.type != "cuda" or not GLOBAL_TRACER.recording():
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(self.device))
+        return _IdleMark(start, time.perf_counter_ns(), prev,
+                         GLOBAL_TRACER.batch_id())
+
+    def _copy_out(self, *outs: torch.Tensor,
+                  mark: Optional[_IdleMark] = None) -> _HostCopy:
+        """The launch's _HostCopy; a timed one's event is where the next
+        launch's idle gap starts."""
+        copy = _HostCopy(*outs, mark=mark)
+        if mark is not None:
+            self._last_end = copy.event
+        return copy
+
+    def _search_full_async(self, queries, k: int):
+        """The fused, exact and fast modes' launch (plan_full)."""
+        nq = len(queries)
+        dcfg = self.config.device
         block = dcfg.posting_block
         dev = self.device
-        tables = dict(post_doc=self.post_doc, post_score=self.post_score)
-        if dcfg.mode == "exact":
-            # eager: max_df (host ints, the windows of each term slot) is a
-            # static of the launch and differs from batch to batch, so a
-            # graph per value would be captured for nearly every batch
-            out = bm25_topk_exact(
-                self.post_doc, self.post_score, _upload(starts, dev),
-                _upload(dfs, dev), _upload(weights, dev),
-                n_slots=self.n_slots, K=K, block=block,
-                max_df=dfs.max(axis=0).tolist(),
+        with GLOBAL_TRACER.span("index.plan"):
+            K = min(_bucket(max(k, 1), self.K_BUCKETS), self.n_slots)
+            starts, dfs, weights, light_dfs, unique_heavy, heavy_mix = (
+                self.plan_full(queries)
             )
-        elif dcfg.mode == "fast":
-            chunks = self._chunk_plan(starts, dfs, weights, block)
-            out = self.launch_cache.run(
-                bm25_topk_fast,
-                {n: _upload(c, dev) for n, c in zip(
+            if dcfg.mode == "exact":
+                # eager: max_df (host ints, the windows of each term slot)
+                # is a static of the launch and differs from batch to
+                # batch, so a graph per value would be captured for nearly
+                # every batch
+                max_df = dfs.max(axis=0).tolist()
+                plan = dict(starts=starts, dfs=dfs, weights=weights)
+            elif dcfg.mode == "fast":
+                plan = dict(zip(
                     ("chunk_start", "chunk_len", "chunk_q", "chunk_w"),
-                    chunks)},
-                dict(tables, n_slots=self.n_slots, K=K, Q=starts.shape[0],
-                     block=block),
-            )
-        else:  # fused (default): the plan in two uploads, one packed result
-            K2 = min(max(2 * K, dcfg.rescore_margin), self.n_slots)
-            C = self._chunk_budget(light_dfs, block)
-            Qb, T = starts.shape
-            U = unique_heavy.shape[0]
-            plan_ints = np.stack([starts, dfs, light_dfs])
-            plan_f32 = np.zeros((Qb + 1, T + U), np.float32)
-            plan_f32[:Qb, :T] = weights
-            plan_f32[:Qb, T:] = heavy_mix
-            # ids as exact f32 values (< 2^24), as the reference packs them
-            plan_f32[Qb, T:] = unique_heavy.astype(np.float32)
-            packed = self.launch_cache.run(
-                bm25_search_packed,
-                dict(plan_ints=_upload(plan_ints, dev),
-                     plan_f32=_upload(plan_f32, dev)),
-                dict(tables, dense_rows=self.dense_rows, n_slots=self.n_slots,
-                     K=K, K2=K2, C=C, block=block,
-                     bs_steps=max(2, self.n_slots.bit_length() + 1),
-                     scores_bf16=dcfg.scores_bf16),
-            )
-            return ("packed", nq, k, K, _HostCopy(packed), None, None)
-        return ("pending", nq, k, K, _HostCopy(*out))
+                    self._chunk_plan(starts, dfs, weights, block)))
+            else:  # fused (default): the plan in two uploads
+                K2 = min(max(2 * K, dcfg.rescore_margin), self.n_slots)
+                C = self._chunk_budget(light_dfs, block)
+                Qb, T = starts.shape
+                U = unique_heavy.shape[0]
+                plan_f32 = np.zeros((Qb + 1, T + U), np.float32)
+                plan_f32[:Qb, :T] = weights
+                plan_f32[:Qb, T:] = heavy_mix
+                # ids as exact f32 values (< 2^24), as the reference packs
+                # them
+                plan_f32[Qb, T:] = unique_heavy.astype(np.float32)
+                plan = dict(plan_ints=np.stack([starts, dfs, light_dfs]),
+                            plan_f32=plan_f32)
+        with GLOBAL_TRACER.span("index.enqueue"):
+            ins = {name: _upload(arr, dev) for name, arr in plan.items()}
+            mark = self._idle_mark()
+            tables = dict(post_doc=self.post_doc, post_score=self.post_score)
+            if dcfg.mode == "exact":
+                out = bm25_topk_exact(
+                    self.post_doc, self.post_score, **ins,
+                    n_slots=self.n_slots, K=K, block=block, max_df=max_df,
+                )
+            elif dcfg.mode == "fast":
+                out = self.launch_cache.run(
+                    bm25_topk_fast, ins,
+                    dict(tables, n_slots=self.n_slots, K=K,
+                         Q=starts.shape[0], block=block),
+                )
+            else:  # fused: one packed result
+                packed = self.launch_cache.run(
+                    bm25_search_packed, ins,
+                    dict(tables, dense_rows=self.dense_rows,
+                         n_slots=self.n_slots, K=K, K2=K2, C=C, block=block,
+                         bs_steps=max(2, self.n_slots.bit_length() + 1),
+                         scores_bf16=dcfg.scores_bf16),
+                )
+                return ("packed", nq, k, K,
+                        self._copy_out(packed, mark=mark), None, None)
+            return ("pending", nq, k, K, self._copy_out(*out, mark=mark))
 
     def _search_sparse_async(self, queries, k: int, shortcut: bool = True):
         nq = len(queries)
-        K = min(_bucket(max(k, 1), self.K_BUCKETS), self.n_slots)
-        queries, fills = (
-            self._shortcut_single_heavy(queries, k) if shortcut
-            else (queries, None)
-        )
-        if shortcut and self._rescue_memo:
-            out_q = None
-            for qi, terms in enumerate(queries):
-                if fills is not None and qi in fills:
-                    continue
-                res = self._rescue_memo.get((tuple(terms), K))
-                if res is None:
-                    continue
-                if fills is None:
-                    fills = {}
-                if out_q is None:
-                    out_q = list(queries)
-                fills[qi] = QueryResult(
-                    scores=res.scores[:k], doc_slots=res.doc_slots[:k],
-                    found=res.found,
-                )
-                out_q[qi] = []
-            if out_q is not None:
-                queries = out_q
-        if fills is not None and len(fills) == nq:
-            return ("fills", nq, k, fills)
-
-        dcfg = self.config.device
-        g = self._pins.get("Q") or dcfg.launch_group
-        # Under the selection kernel K4, order queries by light window so
-        # the long windows sit together (the reference does so for its
-        # kernel's per-program block count, segment.py:1473-1506); dealt
-        # round-robin over launch groups so each group keeps its share.
-        # Undone at gather. NEXTSEARCH_SORT_QUERIES=1 forces it (tests).
-        perm = None
-        forced = os.environ.get("NEXTSEARCH_SORT_QUERIES") == "1"
-        select_kernel = os.environ.get("NEXTSEARCH_SELECT_PALLAS", "0") == "1"
-        if (select_kernel or forced) and nq > 1:
-            wins = self._query_windows(queries)
-            if wins.size and (wins.max() > 1024 or forced):
-                order = np.argsort(wins, kind="stable")
-                perm = _deal_sorted(order, g) if g and nq > g else order
-                queries = [queries[i] for i in perm]
-        fast = (
-            dcfg.fast_heavy
-            and self._heavy_direct
-            and os.environ.get("NEXTSEARCH_FAST_HEAVY", "1") == "1"
-        )
-        use_compact = os.environ.get("NEXTSEARCH_COMPACT_HEAVY", "1") == "1"
-        block = dcfg.posting_block
-        unified = False
-        if g and nq > g:
-            plans, U = self._plan_groups(queries, g)
-            groups = range(plans.shape[0])
-            C = max(self._chunk_budget(plans[gi, 1], block) for gi in groups)
-            L2 = max(self._light_budget(plans[gi]) for gi in groups)
-            H2 = max(self._heavy_budget(plans[gi]) for gi in groups)
-            run, plan, w_max = packed_multi, plans, self._sel_window(plans[:, 1])
-        else:
-            plan, U = self.plan_sparse(queries)
-            C = self._chunk_budget(plan[1], block)
-            L2 = self._light_budget(plan)
-            H2 = self._heavy_budget(plan)
-            # the unified kernel runs over the compact table at the default
-            # light bucket granularity, single launches only (as the
-            # reference, segment.py:1580-1589)
-            unified = (
-                dcfg.unified
-                and os.environ.get("NEXTSEARCH_UNIFIED", "1") == "1"
-                and self._lb_log2 == LIGHT_BUCKET_LOG2
-                and use_compact
+        with GLOBAL_TRACER.span("index.plan"):
+            K = min(_bucket(max(k, 1), self.K_BUCKETS), self.n_slots)
+            queries, fills = (
+                self._shortcut_single_heavy(queries, k) if shortcut
+                else (queries, None)
             )
-            if not use_compact:
-                U = 0
-            run, w_max = packed_impl, self._sel_window(plan[1])
-        K2 = min(max(2 * K, dcfg.rescore_margin), self.n_slots)
-        plan_dev = {"plans" if run is packed_multi else "plan":
-                    _upload(plan, self.device)}
-        statics = dict(
-            post_doc=self.post_doc, post_score=self.post_score,
-            dense_rows=self.dense_rows,
-            light_bucket_pos=self.light_bucket_pos,
-            n_slots=self.n_slots, K=K, K2=K2, C=C, block=block,
-            bs_steps=self._bs_depth, nd=self.n_dense, nl=self.n_light,
-            heavy_direct=self._heavy_direct, guard_eps=dcfg.fast_heavy_eps,
-            bucket_pos=self.bucket_pos,
-        )
-        cache = self.launch_cache
-        # the switches a launch reads, as statics that key its graph
-        switches = dict(
-            h_bf16=os.environ.get("NEXTSEARCH_H_BF16", "0") == "1",
-            two_level=two_level_sort2(),
-        )
+            if shortcut and self._rescue_memo:
+                out_q = None
+                for qi, terms in enumerate(queries):
+                    if fills is not None and qi in fills:
+                        continue
+                    res = self._rescue_memo.get((tuple(terms), K))
+                    if res is None:
+                        continue
+                    if fills is None:
+                        fills = {}
+                    if out_q is None:
+                        out_q = list(queries)
+                    fills[qi] = QueryResult(
+                        scores=res.scores[:k], doc_slots=res.doc_slots[:k],
+                        found=res.found,
+                    )
+                    out_q[qi] = []
+                if out_q is not None:
+                    queries = out_q
+            if fills is not None and len(fills) == nq:
+                return ("fills", nq, k, fills)
 
-        def launch(fh: bool) -> _HostCopy:
-            # the exact relaunch under fast mode runs over the full stored
-            # table (no compact f32 gather buffer), as in the reference
-            uc = use_compact and (fh or not fast)
-            return _HostCopy(cache.run(run, plan_dev, dict(
-                statics, **switches, U=U if uc else 0, use_compact=uc,
-                fast_heavy=fh, w_max=w_max, lb_log2=self._lb_log2, L2=L2,
-                H2=H2,
-            )))
+            dcfg = self.config.device
+            g = self._pins.get("Q") or dcfg.launch_group
+            # Under the selection kernel K4, order queries by light window
+            # so the long windows sit together (the reference does so for
+            # its kernel's per-program block count, segment.py:1473-1506);
+            # dealt round-robin over launch groups so each group keeps its
+            # share. Undone at gather. NEXTSEARCH_SORT_QUERIES=1 forces it
+            # (tests).
+            perm = None
+            forced = os.environ.get("NEXTSEARCH_SORT_QUERIES") == "1"
+            select_kernel = (
+                os.environ.get("NEXTSEARCH_SELECT_PALLAS", "0") == "1")
+            if (select_kernel or forced) and nq > 1:
+                wins = self._query_windows(queries)
+                if wins.size and (wins.max() > 1024 or forced):
+                    order = np.argsort(wins, kind="stable")
+                    perm = _deal_sorted(order, g) if g and nq > g else order
+                    queries = [queries[i] for i in perm]
+            fast = (
+                dcfg.fast_heavy
+                and self._heavy_direct
+                and os.environ.get("NEXTSEARCH_FAST_HEAVY", "1") == "1"
+            )
+            use_compact = (
+                os.environ.get("NEXTSEARCH_COMPACT_HEAVY", "1") == "1")
+            block = dcfg.posting_block
+            unified = False
+            if g and nq > g:
+                plans, U = self._plan_groups(queries, g)
+                groups = range(plans.shape[0])
+                C = max(self._chunk_budget(plans[gi, 1], block)
+                        for gi in groups)
+                L2 = max(self._light_budget(plans[gi]) for gi in groups)
+                H2 = max(self._heavy_budget(plans[gi]) for gi in groups)
+                run, plan = packed_multi, plans
+                w_max = self._sel_window(plans[:, 1])
+            else:
+                plan, U = self.plan_sparse(queries)
+                C = self._chunk_budget(plan[1], block)
+                L2 = self._light_budget(plan)
+                H2 = self._heavy_budget(plan)
+                # the unified kernel runs over the compact table at the
+                # default light bucket granularity, single launches only (as
+                # the reference, segment.py:1580-1589)
+                unified = (
+                    dcfg.unified
+                    and os.environ.get("NEXTSEARCH_UNIFIED", "1") == "1"
+                    and self._lb_log2 == LIGHT_BUCKET_LOG2
+                    and use_compact
+                )
+                if not use_compact:
+                    U = 0
+                run, w_max = packed_impl, self._sel_window(plan[1])
+            K2 = min(max(2 * K, dcfg.rescore_margin), self.n_slots)
+            statics = dict(
+                post_doc=self.post_doc, post_score=self.post_score,
+                dense_rows=self.dense_rows,
+                light_bucket_pos=self.light_bucket_pos,
+                n_slots=self.n_slots, K=K, K2=K2, C=C, block=block,
+                bs_steps=self._bs_depth, nd=self.n_dense, nl=self.n_light,
+                heavy_direct=self._heavy_direct,
+                guard_eps=dcfg.fast_heavy_eps, bucket_pos=self.bucket_pos,
+            )
+            cache = self.launch_cache
+            # the switches a launch reads, as statics that key its graph
+            switches = dict(
+                h_bf16=os.environ.get("NEXTSEARCH_H_BF16", "0") == "1",
+                two_level=two_level_sort2(),
+            )
+        with GLOBAL_TRACER.span("index.enqueue"):
+            plan_dev = {"plans" if run is packed_multi else "plan":
+                        _upload(plan, self.device)}
+            mark = self._idle_mark()
 
-        if unified:
-            # light entries folded into the heavy product (K5); a guard
-            # trip relaunches the exact full-table packed kernel
-            first = _HostCopy(cache.run(unified_impl, plan_dev, dict(
-                statics, U=U, fast_heavy=fast, L2=L2)))
-        else:
-            first = launch(fast)
-        if fast:
-            return ("packedg", nq, k, K, first, lambda: launch(False), perm,
-                    queries, fills)
-        return ("packed", nq, k, K, first, perm, fills)
+            def launch(fh: bool, mark=None) -> _HostCopy:
+                # the exact relaunch under fast mode runs over the full
+                # stored table (no compact f32 gather buffer), as in the
+                # reference
+                uc = use_compact and (fh or not fast)
+                return self._copy_out(cache.run(run, plan_dev, dict(
+                    statics, **switches, U=U if uc else 0, use_compact=uc,
+                    fast_heavy=fh, w_max=w_max, lb_log2=self._lb_log2,
+                    L2=L2, H2=H2,
+                )), mark=mark)
+
+            if unified:
+                # light entries folded into the heavy product (K5); a guard
+                # trip relaunches the exact full-table packed kernel
+                first = self._copy_out(cache.run(
+                    unified_impl, plan_dev,
+                    dict(statics, U=U, fast_heavy=fast, L2=L2)), mark=mark)
+            else:
+                first = launch(fast, mark)
+            if fast:
+                return ("packedg", nq, k, K, first, lambda: launch(False),
+                        perm, queries, fills)
+            return ("packed", nq, k, K, first, perm, fills)
 
     @property
     def launch_caches(self) -> Dict[torch.device, LaunchCache]:
@@ -654,73 +736,86 @@ class TorchIndex(SparsePlanner):
 
     def search_batch_gather(self, handle) -> List[QueryResult]:
         """Wait for a search_batch_async launch and unpack its results."""
-        tag = handle[0]
-        if tag == "empty":
-            nq = handle[1]
-            return [
-                QueryResult(np.empty(0, np.float32), np.empty(0, np.int32), 0)
-            ] * nq
-        if tag == "fills":
-            _tag, nq, _k, fills = handle
-            return [fills[qi] for qi in range(nq)]
-        if tag == "packedg":
-            _tag, nq, k, K, pending, relaunch, perm, queries, fills = handle
-            (out,) = pending.wait()
-            tripped = np.flatnonzero(out[:nq, 2 * K + 1] < 0.5)
-            if tripped.size:
-                # The one-pass merged-pool selection could not prove the
-                # top-K for these queries: rescue a few on the host with
-                # the exact oracle, or relaunch the whole batch exactly.
-                cap = int(os.environ.get("NEXTSEARCH_TRIP_RESCUE", "8"))
-                if tripped.size <= cap:
-                    t0 = time.perf_counter()
-                    for j in tripped:
-                        self._host_rescue_row(out, int(j), queries, K)
-                    dt = (time.perf_counter() - t0) * 1000.0
-                    self.rescue_ms += dt
-                    self.rescue_trips += int(tripped.size)
-                    log("sparse", f"fast-heavy guard tripped ({tripped.size}/"
-                        f"{nq} queries); host-oracle rescue {dt:.1f}ms")
-                    if os.environ.get("NEXTSEARCH_TRIP_LOG") == "1":
-                        for j in tripped:
-                            terms = queries[int(j)]
-                            dfs = [
-                                int(sum(lex.get(t, (0, 0, -1))[1]
-                                        for lex in self.lex))
-                                for t, _w in terms
-                            ]
-                            log("trip", f"q={[t for t, _ in terms]} dfs={dfs}")
-                else:
-                    log("sparse", f"fast-heavy guard tripped ({tripped.size}/"
-                        f"{nq} queries); relaunching exact-precision kernel")
-                    self.relaunches += 1
-                    (out,) = relaunch().wait()
-            vals, idx, found = _unpack(out, K)
-        elif tag == "pending":  # exact and fast modes: three arrays
-            _tag, nq, k, K, pending = handle
-            perm = fills = None
-            vals, idx, found = pending.wait()
-        else:
-            _tag, nq, k, K, pending, perm, fills = handle
-            vals, idx, found = _unpack(*pending.wait(), K)
-        res: List[QueryResult] = []
-        for qi in range(nq):
-            keep = vals[qi] > 0.0
-            keep[min(k, K):] = False
-            res.append(QueryResult(
-                scores=vals[qi][keep][:k],
-                doc_slots=idx[qi][keep][:k],
-                found=int(found[qi]),
-            ))
-        if perm is not None:
-            unperm = [res[0]] * nq
-            for j in range(nq):
-                unperm[perm[j]] = res[j]
-            res = unperm
-        if fills:
-            for qi, qr in fills.items():
-                res[qi] = qr
-        return res
+        with GLOBAL_TRACER.span("index.gather"):
+            tag = handle[0]
+            if tag == "empty":
+                nq = handle[1]
+                return [QueryResult(np.empty(0, np.float32),
+                                    np.empty(0, np.int32), 0)] * nq
+            if tag == "fills":
+                _tag, nq, _k, fills = handle
+                return [fills[qi] for qi in range(nq)]
+            if tag == "packedg":
+                _tag, nq, k, K, pending, relaunch, perm, queries, fills = (
+                    handle)
+                with GLOBAL_TRACER.span("index.wait"):
+                    (out,) = pending.wait()
+                tripped = np.flatnonzero(out[:nq, 2 * K + 1] < 0.5)
+                if tripped.size:
+                    out = self._guard_trip(out, tripped, relaunch, queries,
+                                           nq, K)
+            elif tag == "pending":  # exact and fast modes: three arrays
+                _tag, nq, k, K, pending = handle
+                perm = fills = None
+                with GLOBAL_TRACER.span("index.wait"):
+                    arrays = pending.wait()
+            else:
+                _tag, nq, k, K, pending, perm, fills = handle
+                with GLOBAL_TRACER.span("index.wait"):
+                    (out,) = pending.wait()
+            with GLOBAL_TRACER.span("index.unpack"):
+                vals, idx, found = (arrays if tag == "pending"
+                                    else _unpack(out, K))
+                res: List[QueryResult] = []
+                for qi in range(nq):
+                    keep = vals[qi] > 0.0
+                    keep[min(k, K):] = False
+                    res.append(QueryResult(
+                        scores=vals[qi][keep][:k],
+                        doc_slots=idx[qi][keep][:k],
+                        found=int(found[qi]),
+                    ))
+                if perm is not None:
+                    unperm = [res[0]] * nq
+                    for j in range(nq):
+                        unperm[perm[j]] = res[j]
+                    res = unperm
+                if fills:
+                    for qi, qr in fills.items():
+                        res[qi] = qr
+            return res
+
+    def _guard_trip(self, out, tripped, relaunch, queries, nq, K):
+        """The packed result once the fast launch's one-pass merged-pool
+        selection could not prove the top-K for the `tripped` queries: a
+        few rescued on the host with the exact oracle (index.rescue), or
+        the whole batch relaunched exactly (index.relaunch)."""
+        cap = int(os.environ.get("NEXTSEARCH_TRIP_RESCUE", "8"))
+        if tripped.size > cap:
+            log("sparse", f"fast-heavy guard tripped ({tripped.size}/"
+                f"{nq} queries); relaunching exact-precision kernel")
+            self.relaunches += 1
+            with GLOBAL_TRACER.span("index.relaunch"):
+                (out,) = relaunch().wait()
+            return out
+        with GLOBAL_TRACER.span("index.rescue"):
+            t0 = time.perf_counter()
+            for j in tripped:
+                self._host_rescue_row(out, int(j), queries, K)
+            dt = (time.perf_counter() - t0) * 1000.0
+        self.rescue_ms += dt
+        self.rescue_trips += int(tripped.size)
+        log("sparse", f"fast-heavy guard tripped ({tripped.size}/"
+            f"{nq} queries); host-oracle rescue {dt:.1f}ms")
+        if os.environ.get("NEXTSEARCH_TRIP_LOG") == "1":
+            for j in tripped:
+                terms = queries[int(j)]
+                dfs = [
+                    int(sum(lex.get(t, (0, 0, -1))[1] for lex in self.lex))
+                    for t, _w in terms
+                ]
+                log("trip", f"q={[t for t, _ in terms]} dfs={dfs}")
+        return out
 
     def hbm_bytes(self) -> Dict[str, int]:
         """Device footprint of the serving index, bytes by component."""

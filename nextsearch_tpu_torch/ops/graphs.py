@@ -40,6 +40,9 @@ replayed under a switch it was not captured with.
   is its default, read once when the index builds its cache, and logged:
   the counterpart of ``JAX_DISABLE_JIT``, for A/B runs and debugging.
 
+Each capture is a span ``graphs.capture`` (utils/profiling.GLOBAL_TRACER),
+opened around it; no span opens inside the captured function.
+
 CPU tensors run the function as it is: there is nothing to capture. A
 stand-in backend (``CPU_BACKEND``) makes a cache on the CPU go through the
 capture and replay logic, so that the tests exercise it without a card.
@@ -55,6 +58,7 @@ from typing import Any, Callable, Dict, List
 import torch
 
 from ..utils.logging import log
+from ..utils.profiling import GLOBAL_TRACER
 from .cuda_build import COUNTERS
 
 # A stand-in capture backend for caches on the CPU (the tests install one);
@@ -200,7 +204,9 @@ class LaunchCache:
         with self._lock:
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._capture(key, fn, names, tensors, statics)
+                # the span lies around the capture: none opens inside fn
+                with GLOBAL_TRACER.span("graphs.capture"):
+                    entry = self._capture(key, fn, names, tensors, statics)
             else:
                 for n, s in zip(names, entry.inputs):
                     s.copy_(tensors[n], non_blocking=True)

@@ -67,6 +67,7 @@ from ..ops.bm25_sparse import LIGHT_BUCKET_LOG2, packed_impl, two_level_sort2
 from ..ops.graphs import LaunchCache
 from ..ops.score_kernels import score_epilogue
 from ..utils.logging import log
+from ..utils.profiling import GLOBAL_TRACER
 from .mesh import Mesh
 
 
@@ -1047,16 +1048,23 @@ class ShardedIndex:
         search_batch_gather (the single-device protocol: keep several
         launches in flight to hide the host's planning). The plan goes up
         as one int32 array per device (f32 payloads as raw bit patterns);
-        results come back as one packed f32 array."""
+        results come back as one packed f32 array. Spans as TorchIndex's:
+        index.launch around index.plan and index.enqueue."""
+        with GLOBAL_TRACER.span("index.launch"):
+            nq = len(queries)
+            if nq == 0 or self.n_docs == 0:
+                return ("empty", nq)
+            if self.config.device.mode == "sparse":
+                return self._search_sparse_async(queries, k)
+            return self._search_full_async(queries, k)
+
+    def _search_sparse_async(self, queries, k: int):
         nq = len(queries)
-        if nq == 0 or self.n_docs == 0:
-            return ("empty", nq)
         dcfg = self.config.device
-        K = min(_bucket(max(k, 1), self.K_BUCKETS), self.shard_capacity)
-        K2 = min(max(2 * K, dcfg.rescore_margin), self.shard_capacity)
-        mode = dcfg.mode
         block = dcfg.posting_block
-        if mode == "sparse":
+        with GLOBAL_TRACER.span("index.plan"):
+            K = min(_bucket(max(k, 1), self.K_BUCKETS), self.shard_capacity)
+            K2 = min(max(2 * K, dcfg.rescore_margin), self.shard_capacity)
             # 1-term head queries: answered host-side from the per-shard
             # top-k tables; their batch slots plan as empty queries
             queries, fills = self._shortcut_single_heavy(queries, k)
@@ -1070,51 +1078,69 @@ class ShardedIndex:
             direct = self._heavy_direct
             fast = (dcfg.fast_heavy and direct
                     and os.environ.get("NEXTSEARCH_FAST_HEAVY", "1") == "1")
-            use_compact = os.environ.get("NEXTSEARCH_COMPACT_HEAVY", "1") == "1"
+            use_compact = (
+                os.environ.get("NEXTSEARCH_COMPACT_HEAVY", "1") == "1")
 
-            def launch(fh: bool) -> _HostCopy:
-                # the exact relaunch under fast mode runs over the full
-                # stored table, as the single-device path does
-                uc = use_compact and (fh or not fast)
-                return _HostCopy(self._run(
-                    plan_np, mode=mode, T=T, U=U if uc else 0, K=K, K2=K2,
-                    C=C, block=block, bs_steps=self._bs_depth,
-                    nd=self.n_dense, nl=self.n_light, use_compact=uc,
-                    heavy_direct=direct, fast_heavy=fh,
-                    guard_eps=dcfg.fast_heavy_eps, L2=L2, H2=H2,
-                    two_level=two_level_sort2()))
+        def launch(fh: bool) -> _HostCopy:
+            # the exact relaunch under fast mode runs over the full
+            # stored table, as the single-device path does
+            uc = use_compact and (fh or not fast)
+            return _HostCopy(self._run(
+                plan_np, mode="sparse", T=T, U=U if uc else 0, K=K, K2=K2,
+                C=C, block=block, bs_steps=self._bs_depth,
+                nd=self.n_dense, nl=self.n_light, use_compact=uc,
+                heavy_direct=direct, fast_heavy=fh,
+                guard_eps=dcfg.fast_heavy_eps, L2=L2, H2=H2,
+                two_level=two_level_sort2()))
 
+        with GLOBAL_TRACER.span("index.enqueue"):
             if fast:
                 return ("packedg", nq, k, K, launch(True),
                         lambda: launch(False), None, queries, fills)
             return ("packed", nq, k, K, launch(False), fills)
-        starts, dfs, weights, light_dfs, unique_heavy, heavy_mix = self.plan(queries)
-        C = self._chunk_budget(light_dfs if mode != "exact" else dfs, block)
-        S, Qb, T = starts.shape
-        U = unique_heavy.shape[2]
-        Qd = Qb // self.dp
-        # one int32 plan (L = 4T + 2U): starts | dfs | light_dfs | weight
-        # bits | heavy-mix bits | unique heavy ids (in the first row of each
-        # dp group)
-        plan_np = np.zeros((S, Qb, 4 * T + 2 * U), np.int32)
-        plan_np[:, :, :T] = starts
-        plan_np[:, :, T:2 * T] = dfs
-        plan_np[:, :, 2 * T:3 * T] = light_dfs
-        plan_np[:, :, 3 * T:4 * T] = weights.view(np.int32)
-        if U:
-            plan_np[:, :, 4 * T:4 * T + U] = heavy_mix.reshape(S, Qb, U).view(np.int32)
-            for g in range(self.dp):
-                plan_np[:, g * Qd, 4 * T + U:] = unique_heavy[:, g, :]
-        # each step's largest df per slot, known here (none read back)
-        max_df = [[dfs[s, g * Qd:(g + 1) * Qd].max(axis=0).tolist()
-                   for s in range(S)] for g in range(self.dp)] \
-            if mode == "exact" else None
-        packed = self._run(
-            plan_np, max_df=max_df, mode="exact" if mode == "exact" else "fused",
-            T=T, U=U, K=K, K2=K2, C=C, block=block, bs_steps=24,
-            nd=self.n_dense, nl=self.n_light, use_compact=False,
-            heavy_direct=False, fast_heavy=False, guard_eps=0.0, L2=0, H2=0)
-        return ("packed", nq, k, K, _HostCopy(packed), None)
+
+    def _search_full_async(self, queries, k: int):
+        """The fused and exact modes' launch."""
+        nq = len(queries)
+        dcfg = self.config.device
+        mode = dcfg.mode
+        block = dcfg.posting_block
+        with GLOBAL_TRACER.span("index.plan"):
+            K = min(_bucket(max(k, 1), self.K_BUCKETS), self.shard_capacity)
+            K2 = min(max(2 * K, dcfg.rescore_margin), self.shard_capacity)
+            starts, dfs, weights, light_dfs, unique_heavy, heavy_mix = (
+                self.plan(queries))
+            C = self._chunk_budget(light_dfs if mode != "exact" else dfs,
+                                   block)
+            S, Qb, T = starts.shape
+            U = unique_heavy.shape[2]
+            Qd = Qb // self.dp
+            # one int32 plan (L = 4T + 2U): starts | dfs | light_dfs |
+            # weight bits | heavy-mix bits | unique heavy ids (in the first
+            # row of each dp group)
+            plan_np = np.zeros((S, Qb, 4 * T + 2 * U), np.int32)
+            plan_np[:, :, :T] = starts
+            plan_np[:, :, T:2 * T] = dfs
+            plan_np[:, :, 2 * T:3 * T] = light_dfs
+            plan_np[:, :, 3 * T:4 * T] = weights.view(np.int32)
+            if U:
+                plan_np[:, :, 4 * T:4 * T + U] = heavy_mix.reshape(
+                    S, Qb, U).view(np.int32)
+                for g in range(self.dp):
+                    plan_np[:, g * Qd, 4 * T + U:] = unique_heavy[:, g, :]
+            # each step's largest df per slot, known here (none read back)
+            max_df = [[dfs[s, g * Qd:(g + 1) * Qd].max(axis=0).tolist()
+                       for s in range(S)] for g in range(self.dp)] \
+                if mode == "exact" else None
+        with GLOBAL_TRACER.span("index.enqueue"):
+            packed = self._run(
+                plan_np, max_df=max_df,
+                mode="exact" if mode == "exact" else "fused",
+                T=T, U=U, K=K, K2=K2, C=C, block=block, bs_steps=24,
+                nd=self.n_dense, nl=self.n_light, use_compact=False,
+                heavy_direct=False, fast_heavy=False, guard_eps=0.0, L2=0,
+                H2=0)
+            return ("packed", nq, k, K, _HostCopy(packed), None)
 
     def _host_rescue_row(self, out, j, queries, K):
         """Overwrite packed row j with the exact host-oracle result for
@@ -1134,55 +1160,72 @@ class ShardedIndex:
     warm_batch = warm_launches
 
     def search_batch_gather(self, handle) -> List[QueryResult]:
-        """Wait for a search_batch_async launch and unpack its results."""
-        tag = handle[0]
-        if tag == "empty":
-            return [QueryResult(np.empty(0, np.float32), np.empty(0, np.int32), 0)
-                    ] * handle[1]
-        if tag == "fills":
-            # whole batch answered host-side by the 1-term shortcut
-            _tag, nq, _k, fills = handle
-            return [fills[qi] for qi in range(nq)]
-        if tag == "packedg":
-            # the guarded fast path: few trips get the exact host-oracle
-            # rescue, many trips one exact full-table relaunch
-            _tag, nq, k, K, pending, relaunch, _perm, queries, fills = handle
-            (out,) = pending.wait()
-            tripped = np.flatnonzero(out[:nq, 2 * K + 1] < 0.5)
-            if tripped.size:
-                cap = int(os.environ.get("NEXTSEARCH_TRIP_RESCUE", "8"))
-                if tripped.size <= cap:
-                    t0 = time.perf_counter()
-                    out = np.array(out)
-                    for j in tripped:
-                        self._host_rescue_row(out, int(j), queries, K)
-                    dt = (time.perf_counter() - t0) * 1000.0
-                    self.rescue_ms += dt
-                    self.rescue_trips += int(tripped.size)
-                    log("sharded", f"fast-heavy guard tripped ({tripped.size}/"
-                        f"{nq} queries); host-oracle rescue {dt:.1f}ms")
-                else:
-                    log("sharded", f"fast-heavy guard tripped ({tripped.size}/"
-                        f"{nq} queries); relaunching exact-precision kernel")
-                    self.relaunches += 1
-                    (out,) = relaunch().wait()
-        else:
-            _tag, nq, k, K, pending, fills = handle
-            (out,) = pending.wait()
-        vals = out[:, :K]
-        idx = out[:, K:2 * K].astype(np.int32)
-        found = out[:, 2 * K]
-        res = []
-        for qi in range(nq):
-            keep = vals[qi] > 0.0
-            keep[min(k, K):] = False
-            res.append(QueryResult(scores=vals[qi][keep][:k],
-                                   doc_slots=idx[qi][keep][:k],
-                                   found=int(found[qi])))
-        if fills:
-            for qi, qr in fills.items():
-                res[qi] = qr
-        return res
+        """Wait for a search_batch_async launch and unpack its results
+        (spans as TorchIndex's: index.gather around index.wait,
+        index.rescue, index.relaunch and index.unpack)."""
+        with GLOBAL_TRACER.span("index.gather"):
+            tag = handle[0]
+            if tag == "empty":
+                return [QueryResult(np.empty(0, np.float32),
+                                    np.empty(0, np.int32), 0)] * handle[1]
+            if tag == "fills":
+                # whole batch answered host-side by the 1-term shortcut
+                _tag, nq, _k, fills = handle
+                return [fills[qi] for qi in range(nq)]
+            if tag == "packedg":
+                # the guarded fast path: few trips get the exact host-oracle
+                # rescue, many trips one exact full-table relaunch
+                _tag, nq, k, K, pending, relaunch, _perm, queries, fills = (
+                    handle)
+                with GLOBAL_TRACER.span("index.wait"):
+                    (out,) = pending.wait()
+                tripped = np.flatnonzero(out[:nq, 2 * K + 1] < 0.5)
+                if tripped.size:
+                    out = self._guard_trip(out, tripped, relaunch, queries,
+                                           nq, K)
+            else:
+                _tag, nq, k, K, pending, fills = handle
+                with GLOBAL_TRACER.span("index.wait"):
+                    (out,) = pending.wait()
+            with GLOBAL_TRACER.span("index.unpack"):
+                vals = out[:, :K]
+                idx = out[:, K:2 * K].astype(np.int32)
+                found = out[:, 2 * K]
+                res = []
+                for qi in range(nq):
+                    keep = vals[qi] > 0.0
+                    keep[min(k, K):] = False
+                    res.append(QueryResult(scores=vals[qi][keep][:k],
+                                           doc_slots=idx[qi][keep][:k],
+                                           found=int(found[qi])))
+                if fills:
+                    for qi, qr in fills.items():
+                        res[qi] = qr
+            return res
+
+    def _guard_trip(self, out, tripped, relaunch, queries, nq, K):
+        """The packed result once the guard tripped for the `tripped`
+        queries: each rescued with the exact host oracle
+        (index.rescue), or the batch relaunched exactly (index.relaunch)."""
+        cap = int(os.environ.get("NEXTSEARCH_TRIP_RESCUE", "8"))
+        if tripped.size > cap:
+            log("sharded", f"fast-heavy guard tripped ({tripped.size}/"
+                f"{nq} queries); relaunching exact-precision kernel")
+            self.relaunches += 1
+            with GLOBAL_TRACER.span("index.relaunch"):
+                (out,) = relaunch().wait()
+            return out
+        with GLOBAL_TRACER.span("index.rescue"):
+            t0 = time.perf_counter()
+            out = np.array(out)
+            for j in tripped:
+                self._host_rescue_row(out, int(j), queries, K)
+            dt = (time.perf_counter() - t0) * 1000.0
+        self.rescue_ms += dt
+        self.rescue_trips += int(tripped.size)
+        log("sharded", f"fast-heavy guard tripped ({tripped.size}/"
+            f"{nq} queries); host-oracle rescue {dt:.1f}ms")
+        return out
 
     # ---------------- result mapping ----------------
 

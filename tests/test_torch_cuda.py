@@ -25,7 +25,8 @@ the card, on the packed, unified and windowed-selection paths and with bf16
 dense rows, and in the fused, exact and fast modes, is held against the same
 index on the CPU and against the oracle. The prefix top-k, similarity top-k
 and hybrid rerank ops run on the card as on the CPU, and HybridIndex's
-results equal its host rows.
+results equal its host rows. While the tracer records, the fused and sparse
+launches record the card's idle gap before each (device.idle).
 """
 
 import numpy as np
@@ -1294,3 +1295,36 @@ def test_graphed_fused_launch_replays_score_epilogue(cuda, scores_bf16):
         assert graphed.replays == r0 + 1
         assert se.score_epilogue.launches == n0 + 1
     assert graphed.captures == caps == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "sparse"])
+def test_device_idle_gaps_recorded_while_tracing(cuda, mode):
+    """While the tracer records, each launch after the first gives a span
+    device.idle of 0 ms or more under its batch id, ending where its start
+    was enqueued; the host's sleep between launches shows as a gap. With
+    the tracer off no launch is timed."""
+    import time
+
+    from nextsearch_tpu_torch.utils.profiling import GLOBAL_TRACER
+
+    _seg, ti, batches = _graph_index(cuda, mode)
+    ti.warm_batch(batches[1], k=10)
+    assert ti.search_batch_async(batches[1], k=10)[4].mark is None
+    torch.cuda.synchronize()
+    GLOBAL_TRACER.reset()
+    GLOBAL_TRACER.start()
+    try:
+        bids = []
+        for batch in batches[1:]:
+            bids.append(GLOBAL_TRACER.new_batch())
+            with GLOBAL_TRACER.batch(bids[-1]):
+                ti.search_batch_gather(ti.search_batch_async(batch, k=10))
+            time.sleep(0.005)
+    finally:
+        GLOBAL_TRACER.stop()
+    gaps = [r for r in GLOBAL_TRACER.records() if r.name == "device.idle"]
+    GLOBAL_TRACER.reset()
+    assert [r.batch for r in gaps] == bids[1:]
+    assert all(r.t1_ns >= r.t0_ns for r in gaps)
+    assert max(r.t1_ns - r.t0_ns for r in gaps) > 1e6
