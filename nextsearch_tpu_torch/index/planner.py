@@ -5,11 +5,13 @@ DeviceIndex, with its device uploads and launches left out: the 1-term
 shortcut tables (row top-k from host postings, light top-k), the merged
 lexicon table, the workload probe and shape pins, plan_sparse and the
 multi-launch group plans, plan and plan_full (the fused, exact and fast
-modes' plan), the host chunk plan of the fast mode, the static budgets (C, L2, H2, W), the host-oracle
-rescue of guard-tripped queries with its memo, and the slot -> document
-mapping. nextsearch_tpu_torch/index/segment.py's TorchIndex builds the
-lexicons and device tables and subclasses this; every method here keeps
-the JAX package's behavior bit for bit (tests/test_torch_host.py).
+modes' plan; plan_sparse and plan_full each fill their arrays in one flat
+pass over the batch), the host chunk plan of the fast mode, the static
+budgets (C, L2, H2, W), the host-oracle rescue of guard-tripped queries
+with its memo, and the slot -> document mapping.
+nextsearch_tpu_torch/index/segment.py's TorchIndex builds the lexicons and
+device tables and subclasses this; every method here keeps the JAX
+package's behavior bit for bit (tests/test_torch_host.py).
 
 Planning is numpy only; a query is planned host-side into fixed-shape
 packed plan arrays, then executed by the port's ops/bm25_sparse.py (sparse
@@ -127,8 +129,8 @@ def _probe_queries(slices, queries):
     """Per query: merged-lexicon row indices + repeated weights.
 
     One _lex_slices dict probe per (query, term); occurrences expand to
-    consecutive table rows via np.repeat + _ranges. Shared by every
-    planner (single-device and sharded, fused and sparse).
+    consecutive table rows via np.repeat + _ranges. probe_workload's;
+    plan_full, plan_sparse and the sharded planner use the flat variant.
     """
     q_rows: List[np.ndarray] = []
     q_ws: List[np.ndarray] = []
@@ -706,12 +708,17 @@ class SparsePlanner:
         """plan() + hybrid split: light dfs and the unique-heavy-row mix
         (the fused, exact and fast modes' plan).
 
-        Vectorized: one _lex_slices probe per (query, term), then NumPy
-        gathers from the merged _lex_table fill the padded plan arrays.
+        One flat pass over the batch: one _lex_slices probe per (query,
+        term), one gather from the merged _lex_table and scatter writes by
+        (query, term slot) fill the padded plan arrays, as plan_sparse
+        does. The heavy mix adds in query-major, term order, so its
+        float32 sums are the reference's bit for bit.
         """
         table = self._lex_table
-        q_rows, q_ws = _probe_queries(self._lex_slices, queries)
-        t_max = max((r.shape[0] for r in q_rows), default=0)
+        rows_all, ws_all, q_lens = _probe_queries_flat(
+            self._lex_slices, queries
+        )
+        t_max = int(q_lens.max()) if q_lens.size else 0
 
         Qb = _pick_shape(
             len(queries), self.Q_BUCKETS, self._pins.get("Q"), "Q"
@@ -722,47 +729,29 @@ class SparsePlanner:
         dfs = np.zeros((Qb, T), np.int32)
         weights = np.zeros((Qb, T), np.float32)
         light_dfs = np.zeros((Qb, T), np.int32)
-        heavy_q: List[np.ndarray] = []
-        heavy_id: List[np.ndarray] = []
-        heavy_w: List[np.ndarray] = []
-        for qi, (rows, ws) in enumerate(zip(q_rows, q_ws)):
-            n = min(rows.shape[0], T)
-            if n == 0:
-                continue
-            rows = rows[:n]
-            ws = ws[:n]
-            ent = table[rows]  # [n, 6]
-            starts[qi, :n] = ent[:, 0]
-            dfs[qi, :n] = ent[:, 1]
-            weights[qi, :n] = ws
+        # T >= every query's row count (_pick_shape escapes past a pin),
+        # so each query's rows fit its row of the plan whole.
+        n_uniq = 0
+        if rows_all.size:
+            qi = np.repeat(np.arange(len(queries), dtype=np.int64), q_lens)
+            ti = _ranges(q_lens)
+            ent = table[rows_all]  # [n, 6]
             dense = ent[:, 2]
             light = dense < 0
-            light_dfs[qi, :n] = np.where(light, ent[:, 1], 0)
-            if not light.all():
-                hm = ~light
-                heavy_q.append(np.full(int(hm.sum()), qi, np.int64))
-                heavy_id.append(dense[hm])
-                heavy_w.append(ws[hm])
-
-        if heavy_id:
-            h_ids = np.concatenate(heavy_id)
-            uniq_ids, inv = np.unique(h_ids, return_inverse=True)
+            starts[qi, ti] = ent[:, 0]
+            dfs[qi, ti] = ent[:, 1]
+            weights[qi, ti] = ws_all
+            light_dfs[qi, ti] = np.where(light, ent[:, 1], 0)
+            heavy = ~light
+            uniq_ids, inv = np.unique(dense[heavy], return_inverse=True)
             n_uniq = uniq_ids.shape[0]
-        else:
-            uniq_ids = _EMPTY_I64
-            inv = _EMPTY_I64
-            n_uniq = 0
         hb = self.config.device.heavy_buckets
         U = _pick_shape(n_uniq, hb, self._pin("U", Qb), "U")
         unique_heavy = np.full(U, self.n_dense, np.int32)  # pad -> zero row
         heavy_mix = np.zeros((Qb, U), np.float32)
         if n_uniq:
             unique_heavy[:n_uniq] = uniq_ids
-            np.add.at(
-                heavy_mix,
-                (np.concatenate(heavy_q), inv),
-                np.concatenate(heavy_w),
-            )
+            np.add.at(heavy_mix, (qi[heavy], inv), ws_all[heavy])
         return starts, dfs, weights, light_dfs, unique_heavy, heavy_mix
 
     def plan_sparse(

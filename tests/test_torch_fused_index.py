@@ -188,6 +188,63 @@ def test_plan_and_plan_full_equal_jax(segs):
     check(ti, segs, batches[0], di)
 
 
+# Batches at the flat planner's edges, over `segs` (every term has one row
+# in each of the three segments; w0000-w0009 are heavy, w0015 on light).
+PLAN_EDGES = {
+    # 2 terms = 6 rows, past a pinned T=4: T escapes to 8
+    "past_pinned_T": ([[("w0000", 1.0), ("w0180", 0.7)], [("w0015", 0.4)]],
+                      {"T": 4}),
+    # one heavy row summed within and across queries, -0.0 weights included;
+    # the last query's sum is 1e-8 in term order and 0 in reverse
+    "repeated_heavy": ([[("w0000", 1.0), ("w0000", 0.3), ("w0000", -0.0)],
+                        [("w0000", 0.7), ("w0001", 1.1), ("w0000", 2.5)],
+                        [("w0001", -0.0)],
+                        [("w0000", 1.0), ("w0000", -1.0), ("w0000", 1e-8)]],
+                       {}),
+    "all_light": ([[("w0015", 1.0), ("w0180", 0.5)], [("w0219", 1.2)],
+                   [("w0017", 0.9), ("w0017", 0.9)]], {}),
+    "empty_or_unknown": ([[], [("nosuchterm", 1.0)], [], [("zz", 0.5)]], {}),
+    "single_query": ([[("w0001", 1.0), ("w0180", 0.7)]], {}),
+    # 129 queries: past the top of Q_BUCKETS (128), so Q rounds up to 256
+    "q129": (None, {}),
+}
+
+
+@pytest.mark.parametrize("scoped", [False, True], ids=["unpinned", "scope_q"])
+@pytest.mark.parametrize("case", list(PLAN_EDGES))
+def test_plan_full_edges_equal_jax_bitwise(segs, case, scoped):
+    """plan_full's six arrays at the flat fill's edges are the JAX index's
+    byte for byte (so -0.0 and NaN patterns count), unpinned and under
+    Q-scoped pins."""
+    qs, pins = PLAN_EDGES[case]
+    if qs is None:
+        qs = _queries(53, n=123)  # and its six fixed queries
+    di, ti = _pair(segs, mode="fused")
+    for idx in (ti, di):
+        if pins:
+            idx.pin_shapes(**pins)
+        if scoped:
+            idx.pin_shapes([qs], scope_q=True)
+    got, ref = ti.plan_full(qs), di.plan_full(qs)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    starts, _d, weights, light_dfs, uh, mix = got
+    assert starts.shape[0] == (256 if case == "q129" else
+                               1 if case == "single_query" else 8)
+    if case == "past_pinned_T":
+        assert starts.shape[1] == 8 and (weights[0] != 0).sum() == 6
+    if case == "all_light":
+        assert (uh == ti.n_dense).all() and not mix.any()
+    if case == "empty_or_unknown":
+        assert not weights.any() and not light_dfs.any() and not mix.any()
+    if case == "repeated_heavy":
+        # w0000's three rows (one a segment) each get 1.0 + 0.3 + -0.0
+        row0 = mix[0][mix[0] != 0]
+        assert row0.size == 3 and (row0 == np.float32(1.0) + np.float32(0.3)).all()
+        assert (mix[3][mix[3] != 0] == np.float32(1e-8)).sum() == 3
+
+
 def test_exact_mode_is_deterministic(segs):
     """The parity mode gives the same bits on every run: within one window
     a (query, doc) cell receives at most one contribution."""
