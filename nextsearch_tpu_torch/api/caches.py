@@ -61,6 +61,18 @@ class Rendered(tuple):
         return d
 
 
+def _dump(snapshot) -> bytes:
+    """The cache file for (key, result) pairs: a JSON array of
+    {"key": key, "result": result}, an entry a line."""
+    rows = [
+        b'{"key": ' + json.dumps(k).encode() + b', "result": '
+        + (v.fragment if isinstance(v, Rendered) else json.dumps(v).encode())
+        + b"}"
+        for k, v in snapshot
+    ]
+    return b"[\n" + b",\n".join(rows) + b"\n]\n" if rows else b"[]\n"
+
+
 class LRUCache:
     """Thread-safe LRU cache of JSON-serializable results."""
 
@@ -87,6 +99,8 @@ class LRUCache:
         self._data: "OrderedDict[str, Any]" = OrderedDict()  # newest last
         self._updates_since_save = 0
         self._lock = threading.Lock()
+        # one writer of <path>.tmp at a time (the flush thread and save())
+        self._write_lock = threading.Lock()
         self._dirty = False
         self._flush_ms = float(flush_ms)
         if self._flush_ms > 0:
@@ -156,22 +170,15 @@ class LRUCache:
         GLOBAL_TRACER.count(f"{self.tag}.flushes")
         with GLOBAL_TRACER.span(f"{self.tag}.flush"):
             try:
-                # Rendered fragments persist as their parsed objects so the
-                # on-disk format stays the reference's {key, result} JSON
-                payload = [
-                    {
-                        "key": k,
-                        "result": (
-                            json.loads(v.fragment)
-                            if isinstance(v, Rendered)
-                            else v
-                        ),
-                    }
-                    for k, v in snapshot
-                ]
+                # the reference's JSON array of {key, result}, one entry a
+                # line; a Rendered fragment is already the result's compact
+                # JSON and is written as it is, so a flush of a full cache
+                # is a join of bytes, not a re-encoding under the GIL
+                data = _dump(snapshot)
                 tmp = self.persist_path.with_suffix(".tmp")
-                tmp.write_text(json.dumps(payload, indent=2), encoding="utf-8")
-                tmp.replace(self.persist_path)
+                with self._write_lock:
+                    tmp.write_bytes(data)
+                    tmp.replace(self.persist_path)
             except OSError as e:
                 log(self.tag, f"Error saving cache: {e}", level="error")
 

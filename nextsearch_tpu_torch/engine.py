@@ -278,6 +278,9 @@ class Engine:
             cum[-1] = 1.0
         n_drawable = int((dfs > 0).sum())  # zero-df terms have zero mass
         rng = np.random.default_rng(0)
+        # the questions' probes and batches draw apart, so that the keyword
+        # queries' draws are the same with or without them
+        rng_long = np.random.default_rng(1)
         launches = 0
         # Serving batches pad up the index's Q-bucket ladder, so every
         # bucket <= max_batch the dispatcher can form must be compiled up
@@ -298,22 +301,27 @@ class Engine:
             ladder += list(range(top * 2, mb, top))
             sizes = sorted(set(ladder) | {mb})
 
-        def _mk_batch(nq: int):
+        def _mk_batch(nq: int, long: bool = False):
+            r = rng_long if long else rng
             if recorded:
-                idx = rng.integers(0, len(recorded), nq)
+                idx = r.integers(0, len(recorded), nq)
                 return [recorded[int(i)] for i in idx]
             out = []
-            for _ in range(nq):
+            for i in range(nq):
                 # df-weighted draw via inverse CDF (O(w log V) per query);
                 # duplicate terms within one query are resampled. w is capped
                 # at the drawable-term count and the resample loop is bounded
                 # so a tiny lexicon (< 4 nonzero-df terms) can't hang startup.
-                w = min(int(rng.integers(1, 5)), n_drawable)
-                picks = np.searchsorted(cum, rng.random(w), side="right")
+                # Keyword queries of 1-4 terms; `long`: questions of 1-8
+                # terms (MS MARCO's, without stopwords), the first of 5-8,
+                # so that the batch plans in the next T envelope.
+                lo, hi = ((5 if i == 0 else 1), 9) if long else (1, 5)
+                w = min(int(r.integers(lo, hi)), n_drawable)
+                picks = np.searchsorted(cum, r.random(w), side="right")
                 for _attempt in range(16):
                     if len(set(picks.tolist())) == w:
                         break
-                    picks = np.searchsorted(cum, rng.random(w), side="right")
+                    picks = np.searchsorted(cum, r.random(w), side="right")
                 out.append(
                     [(terms[int(t)], 1.0) for t in dict.fromkeys(picks.tolist())]
                 )
@@ -326,18 +334,28 @@ class Engine:
         # when it happens). Scoped pins keep small interactive batches on
         # their own small envelopes; overflow escapes stay bounded and
         # loud (_pick_shape). One probe is 16 host-side lexicon scans.
+        # Questions (`long`) plan in a longer T envelope than keywords, and
+        # pin_shapes keeps each probe's pins for its (Q, T) envelope as
+        # well: questions get shapes that hold them, and keyword batches
+        # keep their own. The keyword probe comes last, so the Q envelope's
+        # own pins (those of other T envelopes) are the keywords'.
+        kinds = (False,) if recorded else (False, True)
         if hasattr(index, "pin_shapes"):
             for nq in sizes:
-                pins = index.pin_shapes(
-                    [_mk_batch(nq) for _ in range(16)], scope_q=True
-                )
-                log("warmup", f"pinned shapes {pins}")
+                for long in kinds[::-1]:
+                    pins = index.pin_shapes(
+                        [_mk_batch(nq, long) for _ in range(16)],
+                        scope_q=True,
+                    )
+                    log("warmup", f"pinned shapes {pins}"
+                        + (" for questions" if long else ""))
         caches = list(getattr(index, "launch_caches", {}).values())
         if not any(c.backend is not None for c in caches):
             for k in k_values:
                 for nq in sizes:
-                    index.search_batch(_mk_batch(nq), k=k)
-                    launches += 1
+                    for long in kinds:
+                        index.search_batch(_mk_batch(nq, long), k=k)
+                        launches += 1
             log("warmup", f"compiled {launches} kernel shape(s)")
             return launches
         # Each warm batch captures its launch's CUDA graphs (ops/graphs.py),
@@ -350,12 +368,13 @@ class Engine:
         t0 = time.perf_counter()
         for k in k_values:
             for nq in sizes:
-                seen = replays()
-                for _draw in range(8):
-                    index.warm_batch(_mk_batch(nq), k=k)
-                    if replays() > seen:
-                        break
-                launches += 1
+                for long in kinds:
+                    seen = replays()
+                    for _draw in range(8):
+                        index.warm_batch(_mk_batch(nq, long), k=k)
+                        if replays() > seen:
+                            break
+                    launches += 1
         log("warmup", f"compiled {launches} kernel shape(s)")
         log("warmup", f"captured {sum(c.captures for c in caches) - n0} "
             f"launch graph(s) in {time.perf_counter() - t0:.1f}s")

@@ -300,8 +300,32 @@ def eager_scores(seg: SegmentArrays, k1: float = 1.2, b: float = 0.75) -> np.nda
     )
     df_counts = np.diff(seg.term_offsets)
     idf_p = np.repeat(idf_t, df_counts)
+    return _posting_scores(seg, idf_p, slice(None), k1, b)
 
-    tf_f = seg.post_tf.astype(F32)
-    dl = seg.doc_len.astype(F32)[seg.post_doc]
+
+def _posting_scores(seg: SegmentArrays, idf, at, k1, b) -> np.ndarray:
+    """The f32 BM25 contributions of the postings `at` (a slice or
+    positions) under their terms' idf (one value or one per posting)."""
+    tf_f = seg.post_tf[at].astype(F32)
+    dl = seg.doc_len[seg.post_doc[at]].astype(F32)
     denom = tf_f + k1 * (F32(1.0) - b + b * (dl / F32(seg.avgdl)))
-    return ((idf_p * (tf_f * (k1 + F32(1.0)))) / denom).astype(F32)
+    return ((idf * (tf_f * (k1 + F32(1.0)))) / denom).astype(F32)
+
+
+def eager_scores_at(seg: SegmentArrays, df: int, positions: np.ndarray,
+                    k1: float = 1.2, b: float = 0.75) -> np.ndarray:
+    """eager_scores at some postings of one term of `df` postings, bit for
+    bit (the same f32 operations, element by element); the stored
+    post_score where the segment has one."""
+    if seg.post_score is not None:
+        return seg.post_score[positions].astype(F32)
+    from ..utils.floatops import logf_exact
+
+    k1 = F32(k1)
+    b = F32(b)
+    dfa = np.asarray([df], seg.term_df.dtype)
+    n_minus_df = (np.uint32(seg.N) - dfa.astype(np.uint32)).astype(F32)
+    idf = logf_exact(
+        (n_minus_df + F32(0.5)) / (dfa.astype(F32) + F32(0.5)) + F32(1.0)
+    )
+    return _posting_scores(seg, idf, positions, k1, b)

@@ -58,6 +58,12 @@ def _expand_groups(post_doc, starts, dfs, rows, n_slots: int):
         lo = hi
 
 
+def _cells(row, col, width: int):
+    """Flat int64 offsets row * width + col into a [rows, width] table:
+    the dense rows of a large corpus hold more than 2^31 elements."""
+    return row.to(torch.int64) * width + col.to(torch.int64)
+
+
 def _entries(starts, dfs, rows):
     starts = np.asarray(starts, np.int64)
     dfs = np.asarray(dfs, np.int64)
@@ -79,7 +85,7 @@ def _build_buckets(post_doc, starts, dfs, rows, *, n_rows_pad: int,
     for row, _pos, doc in _expand_groups(post_doc, starts, dfs, rows, n_slots):
         # bucket b's count lands in column b + 1; the running sum below
         # turns counts into first-posting offsets
-        cell = row * (nb + 1) + 1 + (doc >> bucket_log2)
+        cell = _cells(row, 1 + (doc >> bucket_log2), nb + 1)
         counts.index_add_(0, cell, torch.ones_like(cell, dtype=torch.int32))
     occ = int(table.max()) if table.numel() else 0
     table.cumsum_(dim=1)
@@ -108,7 +114,7 @@ def build_heavy_on_device(post_doc: torch.Tensor, post_score: torch.Tensor,
     starts, dfs, rows = _entries(starts, dfs, rows)
     flat = dense.view(-1)
     for row, pos, doc in _expand_groups(post_doc, starts, dfs, rows, n_slots):
-        flat[row * n_slots + doc] = post_score[pos].to(dtype)
+        flat[_cells(row, doc, n_slots)] = post_score[pos].to(dtype)
     if not with_buckets:
         return dense, None, 0
     buckets, occ = _build_buckets(

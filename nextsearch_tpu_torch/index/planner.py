@@ -11,7 +11,11 @@ budgets (C, L2, H2, W), the host-oracle rescue of guard-tripped queries
 with its memo, and the slot -> document mapping.
 nextsearch_tpu_torch/index/segment.py's TorchIndex builds the lexicons and
 device tables and subclasses this; every method here keeps the JAX
-package's behavior bit for bit (tests/test_torch_host.py).
+package's behavior bit for bit (tests/test_torch_host.py). Two additions
+of the port change no result: pin_shapes(scope_q=True) also keeps its pins
+for the probe's (Q, T) envelope, which a batch of that T takes first; and
+a tripped query of one df-head term beside rare ones is rescued from the
+row top-k table (_head_answer), as the oracle would answer it.
 
 Planning is numpy only; a query is planned host-side into fixed-shape
 packed plan arrays, then executed by the port's ops/bm25_sparse.py (sparse
@@ -28,6 +32,8 @@ import numpy as np
 
 from ..utils.floatops import logf_exact
 from ..utils.logging import log
+from ..utils.profiling import GLOBAL_TRACER
+from .builder import eager_scores_at
 from .oracle import oracle_search_vec
 
 WeightedTerm = Tuple[str, float]
@@ -79,7 +85,8 @@ def _pick_shape(
     """Static kernel shape for a batch-varying size.
 
     pinned: return the pin; overflow escapes to the next multiple of the
-    pin (bounded distinct shapes) with a warning — recompile flapping
+    pin (bounded distinct shapes), counted (planner.escapes) and logged
+    with a warning — recompile flapping
     mid-serving is THE throughput killer (measured: an unpinned static U
     collapsed serving to 141 QPS), so escapes must be rare and loud.
     unpinned: bucket ladder; overflow past the ladder rounds up to
@@ -91,11 +98,13 @@ def _pick_shape(
         if n <= pin:
             return pin
         v = _round_up(n, pin)
+        GLOBAL_TRACER.count("planner.escapes")
         if warn_tag:
             log(
                 "shapes",
-                f"{warn_tag}={n} exceeds pinned {pin}; compiling a "
-                f"{v}-shape escape (expect a one-time XLA compile)",
+                f"{warn_tag}={n} exceeds pinned {pin}; taking a "
+                f"{v}-shape escape (a launch of a new shape captures "
+                f"its CUDA graph once)",
                 level="warning",
             )
         return v
@@ -631,6 +640,13 @@ class SparsePlanner:
         under-represents term counts (e.g. before semantic expansion)
         would seed more escape shapes than the bounded T ladder. Scoped
         pins win over global ones; requires probe_batches.
+
+        The same pins are also kept for the probe's (Q, T) envelope (T the
+        bucket of its longest query's term slots), and a batch whose plan
+        has that T takes them first: a server that probes short and long
+        queries apart (Engine.warmup) gives each T envelope its own
+        shapes, so long queries neither escape the short queries' pins nor
+        pad the short queries' launches to their own.
         """
         if scope_q:
             if probe_batches is None:
@@ -646,6 +662,7 @@ class SparsePlanner:
                 ("HP", HP or _bucket(m["HP"], self.HP_BUCKETS)),
             ):
                 scope[k] = int(v)
+            self._tpins[(qb, _bucket(m["T"], self.T_BUCKETS))] = dict(scope)
             return {qb: dict(scope)}
         if probe_batches is not None:
             m = self.probe_workload(probe_batches)
@@ -664,9 +681,11 @@ class SparsePlanner:
                 self._pins[k] = int(v)
         return dict(self._pins)
 
-    def _pin(self, key: str, qb: Optional[int] = None) -> Optional[int]:
-        """Effective pin for `key`: the Q-scoped pin for this batch's Q
-        envelope (pin_shapes(scope_q=True)) wins over the global pin.
+    def _pin(self, key: str, qb: Optional[int] = None,
+             t: Optional[int] = None) -> Optional[int]:
+        """Effective pin for `key`: the pin scoped to this batch's (Q, T)
+        envelope, then the Q-scoped pin for its Q envelope (both from
+        pin_shapes(scope_q=True)), win over the global pin.
 
         A Q envelope with NO scoped pin borrows the nearest LARGER warmed
         envelope's pin (else the largest). Unpinned budgets re-derive
@@ -677,6 +696,9 @@ class SparsePlanner:
         had not pinned. Borrowed pins over-pad smaller batches (bounded
         waste) but guarantee one compiled shape per Q bucket."""
         if qb is not None:
+            v = self._tpins.get((qb, t), {}).get(key)
+            if v:
+                return v
             v = self._qpins.get(qb, {}).get(key)
             if v:
                 return v
@@ -746,7 +768,7 @@ class SparsePlanner:
             uniq_ids, inv = np.unique(dense[heavy], return_inverse=True)
             n_uniq = uniq_ids.shape[0]
         hb = self.config.device.heavy_buckets
-        U = _pick_shape(n_uniq, hb, self._pin("U", Qb), "U")
+        U = _pick_shape(n_uniq, hb, self._pin("U", Qb, T), "U")
         unique_heavy = np.full(U, self.n_dense, np.int32)  # pad -> zero row
         heavy_mix = np.zeros((Qb, U), np.float32)
         if n_uniq:
@@ -835,7 +857,7 @@ class SparsePlanner:
             inv = _EMPTY_I64
             n_uniq = 0
         hb = self.config.device.heavy_buckets
-        U = _pick_shape(n_uniq, hb, self._pin("U", Qb), "U")
+        U = _pick_shape(n_uniq, hb, self._pin("U", Qb, T), "U")
         plan_ints[4] = np.int32(U)  # default: light/padding -> zero row
         if n_uniq:
             plan_ints[4, qi_flat[hm], ti_flat[hm]] = inv
@@ -895,7 +917,7 @@ class SparsePlanner:
         )
         return _pick_shape(
             max(pairs, 1), self.L_BUCKETS,
-            self._pin("L", int(plan_ints.shape[1])), "L",
+            self._pin("L", *map(int, plan_ints.shape[-2:])), "L",
         )
 
     def _heavy_budget(self, plan_ints) -> int:
@@ -909,7 +931,7 @@ class SparsePlanner:
         )
         return _pick_shape(
             max(pairs, 1), self.HP_BUCKETS,
-            self._pin("HP", int(plan_ints.shape[1])), "HP",
+            self._pin("HP", *map(int, plan_ints.shape[-2:])), "HP",
         )
 
     def _chunk_budget(self, dfs, block) -> int:
@@ -917,13 +939,82 @@ class SparsePlanner:
         total = int(np.sum((dfs.astype(np.int64) + block - 1) // block))
         return _pick_shape(
             total, self.config.device.chunk_buckets,
-            self._pin("C", int(dfs.shape[0])), "C",
+            self._pin("C", *map(int, dfs.shape)), "C",
         )
 
-    def _host_rescue_row(self, out, j, queries, K):
-        """Overwrite packed row j with the exact host-oracle result for
-        queries[j] (guard-trip rescue; oracle_search_vec is bit-identical
-        to the device's exact path).
+    def _head_answer(self, terms, K):
+        """The exact top-K hits and found count of a query of one df-head
+        term (a dense row inside the row top-k table) and light terms of
+        few postings, from that table and those postings: (hits as the
+        oracle gives them, found), or None for a query of another form.
+
+        Such a query's top-K is the head row's canonical prefix merged with
+        the light terms' documents: every other document scores its head
+        score alone, so the first K + r documents of the head row (r the
+        light postings) outrank it, and each candidate's score is summed
+        from the f32 posting scores in term-slot order, as the exact
+        rescore sums it. The guard trips on such queries where the top K
+        reaches the head term's near-uniform scores (a df ~ N term beside
+        a few rare ones), and the oracle would pass over every document;
+        here a few binary searches do. One segment, weights 1, distinct
+        terms."""
+        topk = self._row_topk
+        if topk is None or len(self.segments) != 1:
+            return None
+        vals_t, slots_t = topk
+        lex = self.lex[0]
+        slots, head = [], None
+        for t, w in terms:
+            ent = lex.get(t)
+            if ent is None or ent[1] == 0:
+                continue
+            if np.float32(w) != np.float32(1.0):
+                return None
+            if ent[2] >= 0:
+                if head is not None or ent[2] >= vals_t.shape[0]:
+                    return None
+                head = len(slots)
+            slots.append(ent)
+        if head is None or len({e[0] for e in slots}) != len(slots):
+            return None
+        light = sum(int(e[1]) for i, e in enumerate(slots) if i != head)
+        need, kp = K + light, vals_t.shape[1]
+        _start, h_df, row = (int(x) for x in slots[head])
+        if h_df > kp and (need > kp
+                          or not vals_t[row, need - 1] > vals_t[row, kp - 1]):
+            return None  # the stored prefix may not hold the candidates
+        seg = self.segments[0]
+        prefix = slots_t[row, :min(need, kp)][vals_t[row, :min(need, kp)] > 0]
+        light_docs = np.unique(np.concatenate([np.zeros(0, np.int64)] + [
+            seg.post_doc[start:start + df].astype(np.int64)
+            for i, (start, df, _r) in enumerate(slots) if i != head]))
+        cand = np.union1d(prefix.astype(np.int64), light_docs)
+        acc = np.zeros(cand.shape[0], np.float32)
+        in_head = None
+        for i, (start, df, _r) in enumerate(slots):
+            docs = seg.post_doc[start:start + df]
+            pos = np.searchsorted(docs, cand.astype(docs.dtype))
+            hit = pos < df
+            hit[hit] = docs[pos[hit]] == cand[hit]
+            v = np.zeros(cand.shape[0], np.float32)
+            v[hit] = eager_scores_at(
+                seg, int(df), start + pos[hit],
+                k1=self.config.bm25.k1, b=self.config.bm25.b)
+            acc = acc + v
+            if i == head:
+                in_head = hit
+        # every head document scores, and the light ones outside it
+        found = h_df + int(np.count_nonzero(
+            ~in_head[np.isin(cand, light_docs)]))
+        order = np.lexsort((cand, -acc))[:K]
+        order = order[acc[order] > 0]
+        return [(float(acc[i]), 0, int(cand[i])) for i in order], found
+
+    def _host_rescue_row(self, out, j, queries, K, answer=None):
+        """Overwrite packed row j with the exact host result for
+        queries[j]: `answer` (hits, found) where the caller has it
+        (_head_answer), else the oracle's (guard-trip rescue;
+        oracle_search_vec is bit-identical to the device's exact path).
 
         The result is memoized by (query terms, K): guard trips are
         query-shape-deterministic (e.g. a 2-term query of two df~N terms
@@ -931,7 +1022,7 @@ class SparsePlanner:
         tools-built corpus trips on the SAME query every time it recurs,
         40-50 ms of host oracle each). A memo hit answers the repeat at
         plan time with zero device work, like the 1-term shortcut memo."""
-        hits, found = oracle_search_vec(
+        hits, found = answer or oracle_search_vec(
             self._oracle_segs(), queries[j], K,
             k1=self.config.bm25.k1, b=self.config.bm25.b,
         )
@@ -975,6 +1066,17 @@ class SparsePlanner:
         np.add.at(w, qi, dfs)
         return w
 
+    def _query_postings(self, queries) -> np.ndarray:
+        """Per-query postings over all its (term, segment) rows, heavy and
+        light: what the host oracle reads for it. One lexicon probe."""
+        rows_all, _ws, q_lens = _probe_queries_flat(
+            self._lex_slices, queries
+        )
+        qi = np.repeat(np.arange(len(queries), dtype=np.int64), q_lens)
+        out = np.zeros(len(queries), np.int64)
+        np.add.at(out, qi, self._lex_table[rows_all, 1].astype(np.int64))
+        return out
+
     def _sel_window(self, light_dfs) -> int:
         """Static selection-window W for this batch (ops/select_pallas.py):
         the max over queries of summed light dfs — one query's contiguous
@@ -992,7 +1094,7 @@ class SparsePlanner:
         w = int(light_dfs.astype(np.int64).sum(axis=-1).max(initial=0))
         return _pick_shape(
             max(w, 1), self.W_BUCKETS,
-            self._pin("W", int(light_dfs.shape[-2])), "W",
+            self._pin("W", *map(int, light_dfs.shape[-2:])), "W",
         )
 
     def _chunk_plan(self, starts, dfs, weights, block):
@@ -1009,7 +1111,7 @@ class SparsePlanner:
 
         C = _pick_shape(
             total, self.config.device.chunk_buckets,
-            self._pin("C", Qb), "C",
+            self._pin("C", Qb, T), "C",
         )
 
         chunk_start = np.zeros(C, np.int32)

@@ -34,17 +34,23 @@ buffer and a CUDA event that search_batch_gather waits on, so the host can
 plan and launch the next batch while this one runs.
 
 Spans (utils/profiling.GLOBAL_TRACER), one per batch: index.launch around
-index.plan (shortcuts, the planner, chunk budgets, plan packing) and
-index.enqueue (uploads, the replay or eager launch, the copy-out); and
-index.gather around index.wait (the event sync), index.rescue,
-index.relaunch and index.unpack. While the tracer records, on a card,
-each launch also times the card's idle gap before it: a timing event
-after its plan uploads, just before its launch, and its copy-out's event
-with timing; at its gather the gap from the previous launch's end to its
-start is a span device.idle, ending where the start event was enqueued on
-the host clock (a gap above 0 means the stream was empty then, so the
-event ran at its enqueue). The uploads are a few kB, so the gap spans the
-host's enqueue of them, during which the card idles.
+index.plan (shortcuts, the planner, chunk budgets, plan packing; in sparse
+mode index.shortcut around the 1-term shortcut) and index.enqueue
+(uploads, the replay or eager launch, the copy-out); and index.gather
+around index.wait (the event sync), index.rescue, index.relaunch and
+index.unpack. Counters of the sparse mode: index.shortcut_answers (queries
+answered by the row or light top-k tables), index.queries_launched
+(queries sent to a launch), index.guard_trips (queries whose fast guard
+tripped), index.rescued (of those, rescued on the host; rescue_trips
+too) and index.relaunches (batches relaunched exactly; relaunches too).
+While the tracer records, on a card, each launch also times the card's
+idle gap before it: a timing event after its plan uploads, just before its
+launch, and its copy-out's event with timing; at its gather the gap from
+the previous launch's end to its start is a span device.idle, ending where
+the start event was enqueued on the host clock (a gap above 0 means the
+stream was empty then, so the event ran at its enqueue). The uploads are a
+few kB, so the gap spans the host's enqueue of them, during which the card
+idles.
 """
 
 from __future__ import annotations
@@ -131,6 +137,15 @@ class _HostCopy:
         return [h.numpy() for h in self.hosts]
 
 
+# The largest host-oracle pass (the index's documents plus one tripped
+# query's postings) that a guard trip rescues on the host rather than by an
+# exact relaunch of its batch. On an H100 machine's host the oracle took
+# 430-600 ms a query at 8.84M passages (~25 ns an element), and an exact
+# relaunch of a 256-query batch 29.5 ms of the card: past about a million
+# elements the relaunch is the cheaper.
+RESCUE_WORK = 1 << 20
+
+
 def _unpack(out: np.ndarray, K: int):
     """(vals, doc slots, found) of a packed f32 [Q, 2K + 1 (+ guard)] result."""
     return (out[:, :K], out[:, K: 2 * K].astype(np.int32),
@@ -193,6 +208,7 @@ class TorchIndex(SparsePlanner):
         self._last_end = None  # the last timed launch's end event
         self._pins: Dict[str, int] = {}
         self._qpins: Dict[int, Dict[str, int]] = {}
+        self._tpins: Dict[Tuple[int, int], Dict[str, int]] = {}
         self._shortcut_memo: Dict = {}
         self.rescue_ms = 0.0
         self.rescue_trips = 0
@@ -603,10 +619,12 @@ class TorchIndex(SparsePlanner):
         nq = len(queries)
         with GLOBAL_TRACER.span("index.plan"):
             K = min(_bucket(max(k, 1), self.K_BUCKETS), self.n_slots)
-            queries, fills = (
-                self._shortcut_single_heavy(queries, k) if shortcut
-                else (queries, None)
-            )
+            fills = None
+            if shortcut:
+                with GLOBAL_TRACER.span("index.shortcut"):
+                    queries, fills = self._shortcut_single_heavy(queries, k)
+                if fills:
+                    GLOBAL_TRACER.count("index.shortcut_answers", len(fills))
             if shortcut and self._rescue_memo:
                 out_q = None
                 for qi, terms in enumerate(queries):
@@ -628,6 +646,8 @@ class TorchIndex(SparsePlanner):
                     queries = out_q
             if fills is not None and len(fills) == nq:
                 return ("fills", nq, k, fills)
+            GLOBAL_TRACER.count("index.queries_launched",
+                                nq - len(fills or ()))
 
             dcfg = self.config.device
             g = self._pins.get("Q") or dcfg.launch_group
@@ -752,6 +772,7 @@ class TorchIndex(SparsePlanner):
                     (out,) = pending.wait()
                 tripped = np.flatnonzero(out[:nq, 2 * K + 1] < 0.5)
                 if tripped.size:
+                    GLOBAL_TRACER.count("index.guard_trips", int(tripped.size))
                     out = self._guard_trip(out, tripped, relaunch, queries,
                                            nq, K)
             elif tag == "pending":  # exact and fast modes: three arrays
@@ -787,26 +808,45 @@ class TorchIndex(SparsePlanner):
 
     def _guard_trip(self, out, tripped, relaunch, queries, nq, K):
         """The packed result once the fast launch's one-pass merged-pool
-        selection could not prove the top-K for the `tripped` queries: a
-        few rescued on the host with the exact oracle (index.rescue), or
-        the whole batch relaunched exactly (index.relaunch)."""
+        selection could not prove the top-K for the `tripped` queries:
+        rescued on the host (index.rescue), or the whole batch relaunched
+        exactly (index.relaunch). A query of one df-head term and a few
+        light postings is answered from the row top-k table (_head_answer,
+        well under a millisecond). Any other goes to the exact oracle,
+        which passes over every document of the index and the query's
+        postings, on one core, while the gather waits: at most
+        NEXTSEARCH_TRIP_RESCUE (8) of them a batch, each within
+        RESCUE_WORK elements, or the batch relaunches instead."""
         cap = int(os.environ.get("NEXTSEARCH_TRIP_RESCUE", "8"))
-        if tripped.size > cap:
+        with GLOBAL_TRACER.span("index.rescue"):
+            t0 = time.perf_counter()
+            answers = {int(j): self._head_answer(queries[int(j)], K)
+                       for j in tripped}
+            rest = [queries[j] for j, a in answers.items() if a is None]
+            work = (self.n_docs + self._query_postings(rest)
+                    if rest else [0])
+            rescue = len(rest) <= cap and int(max(work)) <= RESCUE_WORK
+            if rescue:
+                for j in tripped:
+                    self._host_rescue_row(out, int(j), queries, K,
+                                          answers[int(j)])
+            dt = (time.perf_counter() - t0) * 1000.0
+        if not rescue:
             log("sparse", f"fast-heavy guard tripped ({tripped.size}/"
-                f"{nq} queries); relaunching exact-precision kernel")
+                f"{nq} queries, past the host's rescue); relaunching "
+                f"exact-precision kernel")
             self.relaunches += 1
+            GLOBAL_TRACER.count("index.relaunches")
             with GLOBAL_TRACER.span("index.relaunch"):
                 (out,) = relaunch().wait()
             return out
-        with GLOBAL_TRACER.span("index.rescue"):
-            t0 = time.perf_counter()
-            for j in tripped:
-                self._host_rescue_row(out, int(j), queries, K)
-            dt = (time.perf_counter() - t0) * 1000.0
         self.rescue_ms += dt
         self.rescue_trips += int(tripped.size)
+        GLOBAL_TRACER.count("index.rescued", int(tripped.size))
         log("sparse", f"fast-heavy guard tripped ({tripped.size}/"
-            f"{nq} queries); host-oracle rescue {dt:.1f}ms")
+            f"{nq} queries); host rescue {dt:.1f}ms, "
+            f"{tripped.size - len(rest)} from the row top-k table, the "
+            f"oracle over {int(sum(work))} elements")
         if os.environ.get("NEXTSEARCH_TRIP_LOG") == "1":
             for j in tripped:
                 terms = queries[int(j)]

@@ -452,6 +452,9 @@ class ShardedIndex:
         self._pins: Dict[str, int] = {}
         # Per-Q-envelope pins (pin_shapes(scope_q=True)): Qb -> {C,U,L,HP}.
         self._qpins: Dict[int, Dict[str, int]] = {}
+        # (Qb, T) -> pins: the planner's _pin reads it; this pin_shapes
+        # scopes by Q only, so it stays empty
+        self._tpins: Dict[Tuple[int, int], Dict[str, int]] = {}
         # (term, k) -> QueryResult|None for w==1 1-term shortcut answers
         self._shortcut_memo: Dict = {}
         self._build_row_topk(post_doc_h, post_score_h, per_shard_entries)

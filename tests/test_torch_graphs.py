@@ -429,8 +429,9 @@ def test_the_cache_goes_with_its_index(fake_backend):
 def test_engine_warmup_captures_one_graph_per_pinned_scope(
         tmp_path, monkeypatch, fake_backend, mode):
     """The scopes as test_engine_warmup_pins_scopes computes them: warmup
-    captures one launch per pinned Q envelope (a guard trip may add the
-    relaunch of the same envelope)."""
+    captures one launch per pinned Q envelope and T envelope, keyword
+    queries' (T 4) and questions' (T 8) (a guard trip may add the relaunch
+    of the same envelope)."""
     from nextsearch_tpu.index.segmentio import save_manifest, write_segment
     from nextsearch_tpu_torch.engine import Engine
     from nextsearch_tpu_torch.index.planner import _bucket as _b
@@ -461,11 +462,11 @@ def test_engine_warmup_captures_one_graph_per_pinned_scope(
     captured = set()
     for _n, shapes, statics in cache.keys():
         by_name = {name: shape for name, shape, _dt in shapes}
-        captured.add((by_name.get("plan", by_name.get("plan_ints"))[-2],
-                      dict(statics).get("fast_heavy")))
+        plan = by_name.get("plan", by_name.get("plan_ints"))
+        captured.add((plan[-2], plan[-1], dict(statics).get("fast_heavy")))
     # sparse: the guarded fast launch and its exact relaunch per envelope
-    want = ({(q, f) for q in expected for f in (True, False)}
-            if mode == "sparse" else {(q, None) for q in expected})
+    want = {(q, t, f) for q in expected for t in (4, 8)
+            for f in ((True, False) if mode == "sparse" else (None,))}
     assert captured == want
     assert cache.captures == len(want)
     # a second warmup over the same pins replays every graph
