@@ -133,23 +133,46 @@ class LRUCache:
         return result
 
     def put(self, key: str, result: Any) -> None:
+        self.put_many(((key, result),))
+
+    def put_many(self, items) -> None:
+        """put(key, result) for each pair in turn, under one hold of the
+        lock: the same recency, evictions, dirty flag and saved file as the
+        puts one by one. The evictions count once, by their number, and a
+        write-through cache writes its file once, as the last of those puts
+        that would have written it left it."""
+        snapshot = None
+        evicted = 0
+        due = False  # a write of the cache as it now stands is due
         with self._lock:
-            if key in self._data:
-                self._data.move_to_end(key)
-                self._data[key] = result
-                return
-            if len(self._data) >= self.capacity:
-                self._data.popitem(last=False)
-                GLOBAL_TRACER.count(self._evictions)
-            self._data[key] = result
-            if self._flush_ms > 0:
-                self._dirty = True
-                return
-            self._updates_since_save += 1
-            do_save = self._updates_since_save >= self.save_interval
-            if do_save:
-                self._updates_since_save = 0
-            snapshot = list(self._data.items()) if do_save else None
+            data = self._data
+            for key, result in items:
+                new = key not in data
+                if due and not (new and self._updates_since_save + 1
+                                >= self.save_interval):
+                    # this put is not itself written: the due write holds
+                    # the cache as it was before it
+                    snapshot = list(data.items())
+                    due = False
+                if not new:
+                    data.move_to_end(key)
+                    data[key] = result
+                    continue
+                if len(data) >= self.capacity:
+                    data.popitem(last=False)
+                    evicted += 1
+                data[key] = result
+                if self._flush_ms > 0:
+                    self._dirty = True
+                    continue
+                self._updates_since_save += 1
+                if self._updates_since_save >= self.save_interval:
+                    self._updates_since_save = 0
+                    due = True
+            if due:
+                snapshot = list(data.items())
+        if evicted:
+            GLOBAL_TRACER.count(self._evictions, evicted)
         if snapshot is not None:
             self._save(snapshot)
 

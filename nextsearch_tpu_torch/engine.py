@@ -18,7 +18,9 @@ Spans (utils/profiling.GLOBAL_TRACER), one per batch: engine.launch around
 engine.prepare (cache probes, tokenizer, expansion) and the index's
 index.launch; engine.gather around the index's index.gather and
 engine.render (render and cache fill, metadata fetch included); and
-engine.hybrid and engine.warmup.
+engine.hybrid and engine.warmup. Counters, one per rendered batch:
+engine.render_columnar where the index gave the batch as ResultColumns,
+engine.render_rows where it gave a QueryResult a query.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .api.caches import LRUCache, Rendered, make_cache_key
 from .config import DEFAULT_CONFIG, EngineConfig
 from .index.artifacts import load_segment_cached
 from .index.metadata import MetadataStore
+from .index.planner import ResultColumns
 from .index.segment import TorchIndex
 from .index.segmentio import discover_segments
 from .models.autocomplete import AutocompleteIndex
@@ -55,6 +58,19 @@ EMBEDDING_CANDIDATES = (
     "glove.txt",
     "vectors.txt",
 )
+
+
+def _render_columns(renderer, pending, seg_count, cols) -> List[bytes]:
+    """The native render of a batch's ResultColumns: each query's first K
+    hits, taken from the flat columns as one array each."""
+    ks = np.fromiter((p[2] for p in pending), np.int32, len(pending))
+    counts = np.diff(cols.offsets)
+    rank = (np.arange(len(cols.scores))
+            - np.repeat(cols.offsets[:-1], counts))
+    keep = rank < np.repeat(ks, counts)
+    return renderer.render(
+        [p[1] for p in pending], seg_count, ks, cols.found,
+        np.minimum(counts, ks), cols.scores[keep], cols.doc_slots[keep])
 
 
 class Engine:
@@ -479,36 +495,25 @@ class Engine:
                 with device_trace("search"):
                     results = index.search_batch_gather(handle)
                 with GLOBAL_TRACER.span("engine.render"):
-                    ks = np.empty(len(pending), np.int32)
-                    founds = np.empty(len(pending), np.int32)
-                    counts = np.empty(len(pending), np.int32)
-                    sc_parts = []
-                    slot_parts = []
-                    for j, ((i, query, K, _), qres) in enumerate(
-                        zip(pending, results)
-                    ):
-                        ks[j] = K
-                        founds[j] = int(qres.found)
-                        sc = qres.scores[:K]
-                        counts[j] = sc.shape[0]
-                        sc_parts.append(sc)
-                        slot_parts.append(qres.doc_slots[:K])
-                    frags = renderer.render(
-                        [p[1] for p in pending], seg_count, ks, founds, counts,
-                        np.concatenate(sc_parts) if sc_parts
-                        else np.empty(0, np.float32),
-                        np.concatenate(slot_parts) if slot_parts
-                        else np.empty(0, np.int32),
-                    )
+                    if isinstance(results, ResultColumns):
+                        GLOBAL_TRACER.count("engine.render_columnar")
+                    else:
+                        GLOBAL_TRACER.count("engine.render_rows")
+                        results = ResultColumns.from_rows(results)
+                    frags = _render_columns(renderer, pending, seg_count,
+                                            results)
+                    items = []
                     for (i, query, K, _), frag in zip(pending, frags):
                         r = Rendered(frag, False)
-                        self.cache.put(make_cache_key(query, K), r)
                         out[i] = r
+                        items.append((make_cache_key(query, K), r))
+                    self.cache.put_many(items)
                 return [x for x in out]  # type: ignore[return-value]
             if handle is not None:
                 with device_trace("search"):
                     results = index.search_batch_gather(handle)
                 with GLOBAL_TRACER.span("engine.render"):
+                    GLOBAL_TRACER.count("engine.render_rows")
                     for (i, query, K, _), qres in zip(pending, results):
                         res = {
                             "query": query,

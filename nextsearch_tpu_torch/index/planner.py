@@ -205,6 +205,79 @@ class QueryResult:
     found: int
 
 
+class ResultColumns(Sequence[QueryResult]):
+    """One batch's hits as flat arrays, query after query: query i's hits,
+    in rank order, are scores[offsets[i]:offsets[i + 1]] and the same
+    slice of doc_slots, and it found found[i] documents. It reads as the
+    batch's sequence of QueryResults, whose arrays are views of these, so
+    a change made in place to a QueryResult's arrays is a change to the
+    columns."""
+
+    def __init__(self, scores, doc_slots, offsets, found):
+        self.scores = scores  # f32 [n hits]
+        self.doc_slots = doc_slots  # int32 [n hits]
+        self.offsets = offsets  # int64 [nq + 1]
+        self.found = found  # int32 [nq]
+
+    @classmethod
+    def build(cls, vals, slots, found, perm=None, fills=None):
+        """The columns of a launch's top-w (vals, int32 slots, found) in
+        launch row order: a hit is a positive score; row j answers the
+        batch's query perm[j] where the launch was permuted; fills
+        ({query: QueryResult}, answered on the host) replace their rows."""
+        mask = vals > 0.0
+        if perm is not None:
+            rows = (vals, slots, mask, found)
+            vals, slots, mask, found = (np.empty_like(a) for a in rows)
+            for dst, src in zip((vals, slots, mask, found), rows):
+                dst[perm] = src
+        if fills:
+            w = max([vals.shape[1]] + [len(f.scores) for f in fills.values()])
+            pad = ((0, 0), (0, w - vals.shape[1]))
+            # copies: the launch's own arrays are left as they came
+            vals, slots, mask = (np.pad(a, pad) for a in (vals, slots, mask))
+            found = np.array(found, np.int32)
+            for qi, f in fills.items():
+                n = len(f.scores)
+                vals[qi, :n] = f.scores
+                slots[qi, :n] = f.doc_slots
+                mask[qi] = False
+                mask[qi, :n] = True
+                found[qi] = f.found
+        offsets = np.zeros(len(mask) + 1, np.int64)
+        np.cumsum(mask.sum(axis=1), out=offsets[1:])
+        return cls(vals[mask], slots[mask], offsets,
+                   np.asarray(found, np.int32))
+
+    @classmethod
+    def from_rows(cls, results: Sequence[QueryResult]) -> "ResultColumns":
+        """The columns of a batch given as one QueryResult a query."""
+        offsets = np.zeros(len(results) + 1, np.int64)
+        np.cumsum([len(r.scores) for r in results], out=offsets[1:])
+        return cls(
+            np.concatenate([np.asarray(r.scores, np.float32) for r in results]
+                           + [np.empty(0, np.float32)]),
+            np.concatenate([np.asarray(r.doc_slots, np.int32)
+                            for r in results] + [np.empty(0, np.int32)]),
+            offsets, np.array([int(r.found) for r in results], np.int32))
+
+    def __len__(self) -> int:
+        return len(self.found)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        i = range(len(self))[i]
+        a, b = int(self.offsets[i]), int(self.offsets[i + 1])
+        return QueryResult(self.scores[a:b], self.doc_slots[a:b],
+                           int(self.found[i]))
+
+    def __iter__(self):
+        offs = self.offsets.tolist()
+        for a, b, f in zip(offs, offs[1:], self.found.tolist()):
+            yield QueryResult(self.scores[a:b], self.doc_slots[a:b], f)
+
+
 def _log_build_phases(phases) -> None:
     """One-line cold-start attribution (VERDICT r3 item 5)."""
     log("build", "phases: " + " ".join(
@@ -903,7 +976,8 @@ class SparsePlanner:
         self, queries: Sequence[Sequence[WeightedTerm]], k: int
     ) -> List[QueryResult]:
         """Run one batched BM25 top-k kernel for all queries (blocking)."""
-        return self.search_batch_gather(self.search_batch_async(queries, k))
+        return list(self.search_batch_gather(
+            self.search_batch_async(queries, k)))
 
     def _light_budget(self, plan_ints) -> int:
         """Static live light-pair count L2 for the v4 compact rescore.

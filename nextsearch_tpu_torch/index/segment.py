@@ -77,6 +77,7 @@ from .device_build import (
 )
 from .planner import (
     QueryResult,
+    ResultColumns,
     SparsePlanner,
     WeightedTerm,
     _bucket,
@@ -146,14 +147,15 @@ class _HostCopy:
 RESCUE_WORK = 1 << 20
 
 
-def _unpack(out: np.ndarray, K: int):
-    """(vals, doc slots, found) of a packed f32 [Q, 2K + 1 (+ guard)] result."""
-    return (out[:, :K], out[:, K: 2 * K].astype(np.int32),
+def _unpack(out: np.ndarray, K: int, w: int):
+    """(vals, doc slots, found) of a packed f32 [Q, 2K + 1 (+ guard)]
+    result, the first w of its K hits a row."""
+    return (out[:, :w], out[:, K: K + w].astype(np.int32),
             out[:, 2 * K].astype(np.int32))
 
 
 def warm_launches(index, queries: Sequence[Sequence[WeightedTerm]],
-                  k: int) -> List[QueryResult]:
+                  k: int) -> Sequence[QueryResult]:
     """search_batch on a TorchIndex or ShardedIndex, and under the fast
     guard the batch's exact relaunch as well, so that the index's launch
     caches hold both graphs of the batch's envelope before serving meets a
@@ -754,17 +756,18 @@ class TorchIndex(SparsePlanner):
 
     warm_batch = warm_launches
 
-    def search_batch_gather(self, handle) -> List[QueryResult]:
-        """Wait for a search_batch_async launch and unpack its results."""
+    def search_batch_gather(self, handle) -> ResultColumns:
+        """Wait for a search_batch_async launch and unpack its results as
+        one ResultColumns, which reads as a QueryResult per query."""
         with GLOBAL_TRACER.span("index.gather"):
             tag = handle[0]
-            if tag == "empty":
+            if tag == "empty" or tag == "fills":
                 nq = handle[1]
-                return [QueryResult(np.empty(0, np.float32),
-                                    np.empty(0, np.int32), 0)] * nq
-            if tag == "fills":
-                _tag, nq, _k, fills = handle
-                return [fills[qi] for qi in range(nq)]
+                return ResultColumns.build(
+                    np.zeros((nq, 0), np.float32), np.zeros((nq, 0), np.int32),
+                    np.zeros(nq, np.int32),
+                    fills=handle[3] if tag == "fills" else None)
+            perm = fills = None
             if tag == "packedg":
                 _tag, nq, k, K, pending, relaunch, perm, queries, fills = (
                     handle)
@@ -777,7 +780,6 @@ class TorchIndex(SparsePlanner):
                                            nq, K)
             elif tag == "pending":  # exact and fast modes: three arrays
                 _tag, nq, k, K, pending = handle
-                perm = fills = None
                 with GLOBAL_TRACER.span("index.wait"):
                     arrays = pending.wait()
             else:
@@ -785,26 +787,13 @@ class TorchIndex(SparsePlanner):
                 with GLOBAL_TRACER.span("index.wait"):
                     (out,) = pending.wait()
             with GLOBAL_TRACER.span("index.unpack"):
-                vals, idx, found = (arrays if tag == "pending"
-                                    else _unpack(out, K))
-                res: List[QueryResult] = []
-                for qi in range(nq):
-                    keep = vals[qi] > 0.0
-                    keep[min(k, K):] = False
-                    res.append(QueryResult(
-                        scores=vals[qi][keep][:k],
-                        doc_slots=idx[qi][keep][:k],
-                        found=int(found[qi]),
-                    ))
-                if perm is not None:
-                    unperm = [res[0]] * nq
-                    for j in range(nq):
-                        unperm[perm[j]] = res[j]
-                    res = unperm
-                if fills:
-                    for qi, qr in fills.items():
-                        res[qi] = qr
-            return res
+                w = min(k, K)
+                if tag == "pending":
+                    vals, slots, found = (a[:nq] for a in arrays)
+                    vals, slots = vals[:, :w], slots[:, :w]
+                else:
+                    vals, slots, found = _unpack(out[:nq], K, w)
+                return ResultColumns.build(vals, slots, found, perm, fills)
 
     def _guard_trip(self, out, tripped, relaunch, queries, nq, K):
         """The packed result once the fast launch's one-pass merged-pool

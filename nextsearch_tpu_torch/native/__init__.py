@@ -264,9 +264,10 @@ class NativeRenderer:
     ) -> List[bytes]:
         """Per-query compact JSON response objects, one bytes each."""
         nq = len(queries)
-        q_blob = "".join(queries).encode("utf-8")
+        encoded = [q.encode("utf-8") for q in queries]
+        q_blob = b"".join(encoded)
         q_offs = np.zeros(nq + 1, np.int64)
-        np.cumsum([len(q.encode("utf-8")) for q in queries], out=q_offs[1:])
+        np.cumsum(list(map(len, encoded)), out=q_offs[1:])
         ks = np.ascontiguousarray(ks, np.int32)
         founds = np.ascontiguousarray(founds, np.int32)
         counts = np.ascontiguousarray(counts, np.int32)
@@ -286,9 +287,8 @@ class NativeRenderer:
             ptr(frag_offs, ctypes.c_int64),
         )
         buf = ctypes.string_at(self._lib.nsr_buf(self._h), int(total))
-        return [
-            buf[frag_offs[i]:frag_offs[i + 1]] for i in range(nq)
-        ]
+        offs = frag_offs.tolist()
+        return [buf[a:b] for a, b in zip(offs, offs[1:])]
 
     def close(self):
         if self._h:
