@@ -31,21 +31,16 @@ non-zero before the last line:
    bf16 table) and each P6 variant at probe_fusedmm's (Q 512, uc 384,
    n_slots 999,424, bf16 table), whose dense mixes take the tensor-core
    dense kernel: cnt bit-exact, H and smax within tc_rtol (the tensor
-   cores round once per 16-term step), a bf16 H bit-equal to the rounding
-   of the kernel's own f32 H; the two dense kernels for bf16 operands
-   (tensor cores, FFMA loop) compared and timed in turns on K6's launch; K1
-   on the same dense mix, fast and f32-exact over the table widened to f32
-   (the FFMA kernels, bit-equal to each other, timed in turns); P1-P5 at
-   mosaic_probe's on seeded random operands, plus a [37, 300] transpose,
-   as benchmarks/kernel_probe.py holds them. K4, P1-P5 and mix_lists (all
+   cores round once per 16-term step), cnt and H > 0 bit for bit and H
+   within tc_rtol by `compare` (h_max_rel_err), a bf16 H bit-equal to the
+   rounding of the kernel's own f32 H; K1 on the same dense mix, fast and
+   f32-exact over the table widened to f32 (the cp.async-fed FFMA kernel,
+   against cuBLAS within ffma_rtol); P1-P5 at mosaic_probe's on seeded
+   random operands, plus a [37, 300] transpose, as
+   benchmarks/kernel_probe.py holds them. K4, P1-P5 and mix_lists (all
    under 0.1 ms) are timed over many launches per event pair, as the
    wrapper (ms) and as the bare C entry point on preallocated outputs
-   (raw_ms). K3's two copy kernels (the unrolled register copy that
-   callers get, the first port's) are held bit-equal and timed in turns
-   on the same operands (ab_old_ms, ab_new_ms); so are K4's (the
-   threshold select, the first port's k2 rounds) and P3's (the band
-   kernel, the first port's one thread per cell), as raw entries
-   (ab_first_ms, ab_new_ms). K4 is timed beside the flat selection sort
+   (raw_ms). K4 is timed beside the flat selection sort
    that its path replaces (replaced_exact_ms, replaced_quantized_ms: a
    yardstick, not a library call). The kernels line carries
    launch_floor_ms, P5's raw time at [1, 128]: one 16 x 16 block moving
@@ -375,40 +370,6 @@ def check_mix_lists(mixes, device, reps: int) -> dict:
         lambda: hk.mix_lists_ref(mix, rnd), raw=raw))
 
 
-def k3_ab(fn, ids, table, device, reps: int) -> dict:
-    """K3's two copy kernels on the same operands in one process: each
-    bit-equal to the plain version, then their times in turns (old, new,
-    new, old; old is the first port's kernel, new the unrolled register copy
-    that every caller gets)."""
-    import torch
-
-    from nextsearch_tpu_torch.ops import heavy_kernels as hk
-
-    want = _bits(hk.gather_rows_ref(ids, table))
-    for first in (True, False):
-        if not torch.equal(_bits(fn(ids, table, first=first)), want):
-            raise AssertionError(f"{fn.__name__} first={first} is not bit-exact")
-    del want
-    times = {True: [], False: []}
-    for first in (True, False, False, True):
-        times[first].append(timed(lambda: fn(ids, table, first=first), device, reps))
-    say(f"K3 A/B {fn.__name__} {tuple(table.shape)} {table.dtype} "
-        f"{ids.numel()} ids (old, new, new, old): first port {times[True]} ms, "
-        f"unrolled {times[False]} ms")
-    return dict(ab_old_ms=times[True], ab_new_ms=times[False])
-
-
-def ab_small(first, new, device, reps: int) -> dict:
-    """A redesigned kernel under ~0.1 ms and the first port's, as raw C
-    entry calls on preallocated outputs, timed in turns (first, new, new,
-    first) over the same calls per event pair."""
-    inner = inner_for(new, device)
-    times = {True: [], False: []}
-    for f in (True, False, False, True):
-        times[f].append(timed(first if f else new, device, reps, inner))
-    return dict(ab_first_ms=times[True], ab_new_ms=times[False], ab_inner=inner)
-
-
 def build_index(device, n_docs: int, vocab: int, batch: int, n_batches: int,
                 mode: str = "sparse", **device_fields):
     """Bench corpus (artifact-cached under the temp dir), TorchIndex at the
@@ -474,7 +435,6 @@ def check_kernels(ti, batch, device, reps: int):
             **bound(nbytes(ids, got) + rows_read),
         )
         del got, exp
-    out["gather_rows"].update(k3_ab(hk.gather_rows, ids, table, device, reps))
     t_bf16 = hk.gather_rows_bf16(ids, table)
     t_f32 = hk.gather_rows(ids, table)
 
@@ -585,7 +545,6 @@ def check_probe_kernels(device, reps: int, shape: dict):
 
     from nextsearch_tpu_torch.benchmarks import kernel_probe, probe_fusedmm
     from nextsearch_tpu_torch.ops import heavy_kernels as hk
-    from nextsearch_tpu_torch.ops import probe_kernels as pk
 
     bf16 = torch.bfloat16
     mix, dense = probe_fusedmm.operands(device, **shape)
@@ -596,8 +555,10 @@ def check_probe_kernels(device, reps: int, shape: dict):
         f"rtol {rtol:.3g}")
     out = {}
     f32 = hk.heavy_fused(mix, dense, fast=True)
-    err = _heavy_check("K6 fast", f32, hk.heavy_fused_ref(mix, dense, fast=True),
-                       rtol)
+    ref = hk.heavy_fused_ref(mix, dense, fast=True)
+    err = _heavy_check("K6 fast", f32, ref, rtol)
+    rel = compare(f32, ref, rtol)
+    del ref
     if not torch.equal(f32[1][:n_sub], f32[0].view(q, n_sub, 128).amax(2).T):
         raise AssertionError("K6: smax != max of own H")
     up = hk.heavy_fused(mix, dense, fast=True, h_dtype=bf16)
@@ -629,8 +590,8 @@ def check_probe_kernels(device, reps: int, shape: dict):
                        device, reps),
         exact_plain_ms=timed(lambda: hk.heavy_fused_ref(mix, dense, fast=False),
                              device, reps),
+        h_max_rel_err=rel,
     )
-    out["heavy_fused"].update(dense_ab(mix, dense, f32, device, reps, rtol))
     out["heavy_fused3_dense"] = k1_dense(mix, dense, f32, device, reps, rtol)
     p6, err = {}, 0.0
     for label, kw in probe_fusedmm.VARIANTS.items():
@@ -675,22 +636,6 @@ def check_probe_kernels(device, reps: int, shape: dict):
                 raise AssertionError(f"{name}: raw launch differs from wrapper")
         out[name] = dict(max_abs_err=err, **bound(lib[1], lib[2]),
                          **timed_small(device, reps, kern, plain, lib[0], raw))
-    wq, wv, wd = args["window_op"]
-    qt = dict(q=kernel_probe.Q, tile=kernel_probe.TILE)
-    if not torch.equal(pk.window_op(wq, wv, wd, first=True, **qt),
-                       pk.window_op(wq, wv, wd, **qt)):
-        raise AssertionError("P3: the first kernel differs from the band kernel")
-    if "window_op" in raws:
-        o_first = torch.full((qt["q"], qt["tile"]), 7.0, device=device)
-        first = raw_entry("ns_probe_window_op", device, wq.data_ptr(),
-                          wv.data_ptr(), wd.data_ptr(), o_first.data_ptr(),
-                          qt["q"], qt["tile"], wv.numel(), 1)
-        first()
-        if not torch.equal(o_first, raws["window_op"][1]):
-            raise AssertionError("P3: raw first kernel differs from the band kernel")
-        out["window_op"].update(ab_small(first, raws["window_op"][0], device, reps))
-        say(f"P3 A/B (first, new, new, first): "
-            f"{out['window_op']['ab_first_ms']} / {out['window_op']['ab_new_ms']} ms")
     wide = out.pop("transpose_wide")
     out["transpose"].update(prefixed("wide_", wide))
     for name, v in out.items():
@@ -700,7 +645,7 @@ def check_probe_kernels(device, reps: int, shape: dict):
 
 def tc_rtol(nd: int) -> float:
     """Tolerance of the tensor-core dense kernel's H and smax against the
-    plain version and the FFMA loop. All multiply the same bf16 values
+    plain version and the gather. All multiply the same bf16 values
     (exact products) and add nd non-negative terms in f32; the tensor cores
     round (toward zero) once per 16-term mma step, not once per term, so
     their sum is within nd / 16 steps of 2^-23 of the true one. Doubled for
@@ -709,39 +654,28 @@ def tc_rtol(nd: int) -> float:
     return (nd / 8 + 8) * 2.0 ** -23
 
 
-def dense_ab(mix, dense, tc, device, reps: int, rtol: float) -> dict:
-    """The two dense kernels on K6's fast launch, in one process on the
-    same operands: the FFMA loop's outputs against the tensor-core
-    kernel's (tc: cnt and H > 0 bit for bit, H and smax within rtol), then
-    their times in turns (old, new, new, old)."""
+def compare(new, old, rtol: float) -> float:
+    """Max relative difference of H; raises unless cnt and H > 0 are equal
+    and H is within rtol (0: bit for bit; a bf16 H within one bf16 step)."""
     import torch
 
-    from nextsearch_tpu_torch.benchmarks import probe_dense
-    from nextsearch_tpu_torch.ops import heavy_kernels as hk
-
-    def launch(ffma: bool):
-        return hk.heavy_fused(mix, dense, fast=True, ffma=ffma)
-
-    old = launch(True)
-    rel = probe_dense.compare(tc, old, rtol)
-    fin = torch.isfinite(old[1])
-    _rel_check("dense A/B smax (tensor cores against FFMA)",
-               ((tc[1][fin], old[1][fin]),), rtol)
-    del old, fin
-    times = {"ffma": [], "tc": []}
-    for ffma in (True, False, False, True):
-        times["ffma" if ffma else "tc"].append(
-            timed(lambda: launch(ffma), device, reps))
-    say(f"dense A/B, K6 fast (old, new, new, old): FFMA loop {times['ffma']} "
-        f"ms, tensor cores {times['tc']} ms; max rel diff of H {rel:.3g}")
-    return dict(ab_ffma_ms=times["ffma"], ab_tc_ms=times["tc"],
-                tc_vs_ffma_h_max_rel_err=rel)
+    if not (torch.equal(new[2], old[2]) and torch.equal(new[0] > 0, old[0] > 0)):
+        raise AssertionError("cnt or positivity differs")
+    if new[0].dtype == torch.bfloat16:
+        # two f32 sums on either side of a rounding boundary are stored one
+        # bf16 step apart
+        rtol = max(rtol, 2.0 ** -7)
+    a, b = new[0].float(), old[0].float()
+    rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    if rel > rtol:
+        raise AssertionError(f"H differs by {rel:.3g} relative (rtol {rtol:.3g})")
+    return rel
 
 
 def k1_dense(mix, dense, k6, device, reps: int, rtol: float) -> dict:
     """K1 on a dense mix at K6's shapes: bf16 operands (fast; the
     tensor-core kernel, bit-equal to K6's launch k6) and f32 exact over
-    the same table widened to f32 (the FFMA loop; bound by operations),
+    the same table widened to f32 (the FFMA kernel; bound by operations),
     each against its plain version, with bound, plain and library time."""
     import torch
 
@@ -760,20 +694,6 @@ def k1_dense(mix, dense, k6, device, reps: int, rtol: float) -> dict:
             raise AssertionError("K1 dense fast differs from K6 fast")
         out.update(prefixed(key, dict(
             max_abs_err=err, **heavy_bound(mix, tab, fast, got))))
-        if not fast:
-            # the two FFMA kernels of f32-exact mode: the same fmaf chains,
-            # so the same bits; then their times in turns
-            def launch(ffma: bool):
-                return hk.heavy_fused3(mix, tab, fast=False, ffma=ffma)
-
-            if not all(torch.equal(a, b) for a, b in zip(got, launch(True))):
-                raise AssertionError("K1 dense exact: the two FFMA kernels differ")
-            ab = {True: [], False: []}
-            for ffma in (True, False, False, True):
-                ab[ffma].append(timed(lambda: launch(ffma), device, reps))
-            say(f"dense A/B, K1 f32 exact (old, new, new, old): older loop "
-                f"{ab[True]} ms, cp.async-fed 8 x 8 loop {ab[False]} ms")
-            out.update(exact_f32_ab_old_ms=ab[True], exact_f32_ab_new_ms=ab[False])
         del got
         out.update(prefixed(key, dict(
             ms=timed(lambda: hk.heavy_fused3(mix, tab, fast=fast), device, reps),
@@ -878,10 +798,9 @@ def check_unified(ti, plan, mix_c, ids, device, reps):
 
 def check_select(ti, plan, mix_c, t_bf16, device, reps):
     """K4 against its plain version on the plan's light selection scores
-    (light totals + fast H at each (q, doc)): the threshold select that
-    callers get and the first port's kernel, each bit-exact through the
-    wrapper and the raw entry; the two timed in turns, and beside them the
-    flat selection sort that the K4 path replaces (per_query_topk_flat over
+    (light totals + fast H at each (q, doc)): the threshold select,
+    bit-exact through the wrapper and the raw entry, timed beside the flat
+    selection sort that the K4 path replaces (per_query_topk_flat over
     the same stream, exact and quantized) as a yardstick, not a library
     call."""
     import torch
@@ -915,30 +834,20 @@ def check_select(ti, plan, mix_c, t_bf16, device, reps):
     say(f"K4 operands: {sel.numel()} lanes, w_max={w_max}, longest window "
         f"{int(wins.max())}, k2={k2}")
     exp = sk.per_query_topk_ref(sel, bounds, k2)
-    for first in (True, False):
-        got = sk.per_query_topk(sel, bounds, k2, first=first)
-        if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
-            raise AssertionError(f"K4 first={first} differs from plain")
-    raw, ab = None, {}
+    got = sk.per_query_topk(sel, bounds, k2)
+    if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
+        raise AssertionError("K4 differs from plain")
+    raw = None
     if device.type == "cuda":
         b64 = bounds.to(torch.int64).contiguous()
-        raws, outs = {}, {}
-        for first in (True, False):
-            # the first kernel writes only live slots; the new one, all.
-            # outs keeps each call's outputs alive while it is timed
-            outs[first] = [torch.zeros_like(t) if first else torch.full_like(t, 7)
-                           for t in got]
-            raws[first] = raw_entry("ns_per_query_topk", device, sel.data_ptr(),
-                                    b64.data_ptr(), sel.numel(), q, k2,
-                                    *(t.data_ptr() for t in outs[first]),
-                                    int(first))
-            raws[first]()
-            if not all(torch.equal(a, b) for a, b in zip(outs[first], exp)):
-                raise AssertionError(f"K4 raw first={first} differs from plain")
-        raw = raws[False]
-        ab = ab_small(raws[True], raw, device, reps)
-        say(f"K4 A/B (first, new, new, first): {ab['ab_first_ms']} / "
-            f"{ab['ab_new_ms']} ms")
+        # the kernel writes every slot; outs stays alive while raw is timed
+        outs = [torch.full_like(t, 7) for t in got]
+        raw = raw_entry("ns_per_query_topk", device, sel.data_ptr(),
+                        b64.data_ptr(), sel.numel(), q, k2,
+                        *(t.data_ptr() for t in outs))
+        raw()
+        if not all(torch.equal(a, b) for a, b in zip(outs, exp)):
+            raise AssertionError("K4 raw differs from plain")
     flat = {f"replaced_{name}_ms": (lambda quant=quant: per_query_topk_flat(
         sq, sel, sd, q, k2, quantized=quant)) for name, quant in
         (("exact", False), ("quantized", True))}
@@ -947,7 +856,6 @@ def check_select(ti, plan, mix_c, t_bf16, device, reps):
         **bound(nbytes(sel, bounds, *got)),
         **timed_small(device, reps, lambda: sk.per_query_topk(sel, bounds, k2),
                       lambda: sk.per_query_topk_ref(sel, bounds, k2), raw=raw),
-        **ab,
         **{k: timed(fn, device, reps, inner_for(fn, device))
            for k, fn in flat.items()},
     )
@@ -1494,8 +1402,7 @@ def bf16_phase(oseg, device, n_docs, vocab, n_batches, loop_secs, card, reps):
         plain_ms=timed(lambda: hk.gather_rows_ref(ids, rows), device, reps),
         library_ms=timed(lambda: torch.index_select(rows, 0, ids), device, reps),
         **bound(nbytes(ids, got)
-                + int(torch.unique(ids).numel()) * ti.n_slots * 2),
-        **k3_ab(hk.gather_bf16_rows, ids, rows, device, reps))}
+                + int(torch.unique(ids).numel()) * ti.n_slots * 2))}
     k1 = hk.heavy_fused3(mix_c, got, fast=False)
     err = _heavy_check("K1 exact over bf16 rows", k1,
                        hk.heavy_fused3_ref(mix_c, got, fast=False), 1e-6)

@@ -124,7 +124,7 @@ def raw_calls(args: dict) -> dict:
                           o2.data_ptr(), e.shape[0], ROWS, e.shape[1]),
         "window_op": entry("ns_probe_window_op", o3, wq.data_ptr(),
                            wv.data_ptr(), wd.data_ptr(), o3.data_ptr(), Q, TILE,
-                           wv.numel(), 0),
+                           wv.numel()),
         "reshape_copy": entry("ns_probe_copy", o4, r.data_ptr(), o4.data_ptr(),
                               r.numel()),
     }

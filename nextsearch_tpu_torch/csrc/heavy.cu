@@ -71,7 +71,6 @@ namespace {
 constexpr int CSUB = 128;    // docs per selection sub-block (one block column)
 constexpr int CPT = 16;      // sub-blocks per 2048-doc tile
 constexpr int BM = 64;       // queries per block
-constexpr int BK = 16;       // contraction rows per shared-memory stage
 constexpr int TM = 8;        // queries per thread
 constexpr int TN = 4;        // docs per thread
 constexpr int THREADS = 256; // (BM / TM) * (CSUB / TN)
@@ -128,28 +127,9 @@ __device__ __forceinline__ void store_h4(void* h, long long i, float a, float b,
   }
 }
 
-// Eight consecutive table values widened to f32 (one or two 16-byte loads,
-// through the read-only data cache: no kernel here writes what it reads).
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 // Four consecutive table values widened to f32 (16 bytes of f32 or 8 of
-// bf16), through the read-only data cache.
+// bf16), through the read-only data cache: no kernel here writes what it
+// reads.
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
@@ -252,12 +232,6 @@ __global__ void mix_lists_kernel(const float* __restrict__ mix, int Q, int ND,
 // - heavy_dense_exact_kernel, for the other q-blocks in f32-exact mode (f32
 //   table, !FAST), where no tensor-core form gives fp32 products: an FFMA
 //   loop fed by cp.async, described above the kernel.
-// - heavy_dense_kernel, the first port's FFMA loop (the contraction over
-//   the ND table rows in BK-row stages through shared memory, TM x TN f32
-//   sums per thread, load - barrier - multiply - barrier), runs only behind
-//   the entry points' `ffma` argument, in place of either dense kernel, so
-//   that one process can time and compare them on the same operands;
-//   nothing selects it when a launch fails.
 //
 // All run over a grid of (sub-block, q-block) tiles, q-blocks minor, so
 // the q-blocks of one sub-block run together and each table slab the batch
@@ -267,14 +241,14 @@ __global__ void mix_lists_kernel(const float* __restrict__ mix, int Q, int ND,
 // the gather's state; a persistent grid over the dense q-blocks only was
 // tried and measured slower on the card for both paths.
 //
-// The gather and the two FFMA dense loops give the same bits: the gather
-// runs the loops' fmaf(mix[k], table[k][d], acc) chain over the same k in
+// The gather and the f32-exact FFMA loop give the same bits: the gather
+// runs the loop's fmaf(mix[k], table[k][d], acc) chain over the same k in
 // the same ascending order, only without the k where mix[k] is 0, and for
 // finite table values fmaf(0, x, acc) == acc (acc starts at +0 and never
 // becomes -0, since an exact zero sum rounds to +0). The tensor-core kernel
 // multiplies the same bf16 values (each product exact in f32) but sums them
 // in the tensor cores' order and with their accumulation, which rounds
-// toward zero once per 16-term mma step, so its H agrees with the other two
+// toward zero once per 16-term mma step, so its H agrees with the gather's
 // within a tolerance ((ND / 8 + 8) * 2^-23 relative in the tests: ND / 16
 // steps of 2^-23 over non-negative terms, doubled for the other side), while
 // H > 0, and with it cnt, is the same in all three: the operands are
@@ -284,7 +258,7 @@ __global__ void mix_lists_kernel(const float* __restrict__ mix, int Q, int ND,
 // Bound: device memory for the gather. It needs the table rows the batch's
 // mix uses (each once) and H written once; at the 1M-doc serving shapes
 // that is ~0.8 GB of bf16 (fast) or ~1.5 GB of f32 (exact) table plus 2 GB
-// of f32 H, 0.85-1.1 ms at 3.35 TB/s, and ~2.6 GFLOP of FMAs. The FFMA
+// of f32 H, 0.85-1.1 ms at 3.35 TB/s, and ~2.6 GFLOP of FMAs. An FFMA
 // dense loop, at the probes' dense mixes, is bound by FP32 FFMA throughput
 // (393 GFLOP at Q 512, ND 384, 1M docs: 5.9 ms at 67 TFLOP/s); on the
 // tensor cores the same product is 0.40 ms, and the kernel is bound by the
@@ -440,7 +414,7 @@ heavy_gather_kernel(const TabT* __restrict__ table, const Lists lists,
   const long long d0 = sub * CSUB;
   const int tx = tid & 31;
   const int ty = tid >> 5;
-  if (dense_qblock(lists, q0, Q)) return;  // heavy_dense_kernel's tile
+  if (dense_qblock(lists, q0, Q)) return;  // a dense kernel's tile
   if constexpr (ENTRIES) {
     // K5: the light entries' run sums first, into a zeroed tile, so that
     // each row's product takes its entries and its epilogue at once
@@ -513,105 +487,6 @@ heavy_gather_kernel(const TabT* __restrict__ table, const Lists lists,
   block_max<VARIANT>(bmax, out, sub, qb, n_qblk);
 }
 
-template <bool FAST, typename TabT, bool ENTRIES, int HST, bool VARIANT>
-__global__ void __launch_bounds__(THREADS)
-heavy_dense_kernel(const float* __restrict__ mix, const TabT* __restrict__ table,
-                   const Lists lists, const Entries ent, const Outs out, int Q,
-                   int ND, long long n_slots, int n_qblk) {
-  // The mix and table stages; K5 reuses the same memory for its tile.
-  constexpr int SMEM = ENTRIES ? BM * CSUB : BK * (BM + CSUB);
-  __shared__ __align__(16) float smem[SMEM];
-  float (*As)[BM] = reinterpret_cast<float (*)[BM]>(smem);  // k-major
-  float (*Bs)[CSUB] = reinterpret_cast<float (*)[CSUB]>(smem + BK * BM);
-  const int tid = threadIdx.x;
-  const int qb = blockIdx.x % n_qblk;
-  const long long sub = blockIdx.x / n_qblk;
-  const int q0 = qb * BM;
-  const long long d0 = sub * CSUB;
-  const int tx = tid & 31;  // docs tx*TN .. tx*TN+3 of the sub-block
-  const int ty = tid >> 5;  // queries q0 + ty*TM .. +7 (one warp, one ty)
-  if (!dense_qblock(lists, q0, Q)) return;  // heavy_gather_kernel's tile
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int a_m = tid >> 2;         // mix loader: one query row,
-  const int a_k = (tid & 3) * 4;    //   four consecutive k
-  const int b_k = tid >> 4;         // table loader: one k row,
-  const int b_n = (tid & 15) * 8;   //   eight consecutive docs
-  const int a_q = q0 + a_m;
-
-  for (int k0 = 0; k0 < ND; k0 += BK) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + a_k + j;
-      float v = (a_q < Q && k < ND) ? mix[(long long)a_q * ND + k] : 0.f;
-      if constexpr (FAST || sizeof(TabT) == 2) v = round_bf16(v);
-      As[a_k + j][a_m] = v;
-    }
-    {
-      float v[8];
-      const int k = k0 + b_k;
-      if (k < ND) {
-        load8(table + (long long)k * n_slots + d0 + b_n, v);
-        if constexpr (FAST && sizeof(TabT) == 4) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = round_bf16(v[j]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      }
-      *reinterpret_cast<float4*>(&Bs[b_k][b_n]) =
-          make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(&Bs[b_k][b_n + 4]) =
-          make_float4(v[4], v[5], v[6], v[7]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  if constexpr (ENTRIES) {
-    // The loop ended on __syncthreads(), so the stage memory is free.
-    float (*Ts)[CSUB] = reinterpret_cast<float (*)[CSUB]>(smem);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-      *reinterpret_cast<float4*>(&Ts[ty * TM + i][tx * TN]) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    __syncthreads();
-    add_entries<BM, CSUB>(&Ts[0][0], ent, sub, q0, d0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float4 t = *reinterpret_cast<const float4*>(&Ts[ty * TM + i][tx * TN]);
-      acc[i][0] = t.x; acc[i][1] = t.y; acc[i][2] = t.z; acc[i][3] = t.w;
-    }
-  }
-
-  float bmax = __int_as_float(0xff800000);  // -inf
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-    row_epilogue<HST, VARIANT>(acc[i][0], acc[i][1], acc[i][2], acc[i][3],
-                               q0 + ty * TM + i, Q, sub, d0, tx, n_slots, out,
-                               bmax);
-  block_max<VARIANT>(bmax, out, sub, qb, n_qblk);
-}
-
 // The dense product on the tensor cores, for bf16 operands.
 //
 // Replaces, for dense mixes, the bodies of the TPU kernels K1 _make_kernel3,
@@ -619,7 +494,7 @@ heavy_dense_kernel(const float* __restrict__ mix, const TabT* __restrict__ table
 // (nextsearch_tpu/ops/heavy_pallas.py) and P6 (benchmarks/probe_fusedmm.py
 // fused_variant), which run the product on the MXU, one bf16 pass in fast
 // mode. Both operands are bf16 values, so every product is exact in f32 and
-// only the order and rounding of the f32 sums differ from the FFMA loop.
+// only the order and rounding of the f32 sums differ from the gather's.
 //
 // Bound: bytes. At K6's shapes (Q 512, ND 384, 1M docs) the product is 393
 // GFLOP, 0.40 ms at the bf16 peak, against 2.05 GB of f32 H to store and
@@ -922,15 +797,16 @@ heavy_dense_tc_kernel(const __nv_bfloat16* __restrict__ mixb, int ND_pad,
 // The dense product in f32-exact mode (f32 table, !FAST): fp32 products
 // have no tensor-core form that gives these bits, so this is an FFMA loop,
 // and it keeps the bits of the gather: each sum runs fmaf(mix[k],
-// table[k][d], acc) over ascending k. Bound: operations (FP32 FFMA). What it
-// changes against heavy_dense_kernel is the feed: a 128 x 128 tile with 8 x
+// table[k][d], acc) over ascending k. Bound: operations (FP32 FFMA). The
+// feed is what it changes against a plain loop (64 x 128 tiles, 8 x 4 sums
+// a thread, load - barrier - multiply - barrier): a 128 x 128 tile with 8 x
 // 8 sums a thread (4 16-byte shared-memory reads per 64 FFMAs in place of 3
-// per 32), the operands in a ring of EX_STAGES cp.async stages in place of
-// load - barrier - multiply - barrier (mix by 4-byte copies, stored
-// k-major: its rows are not 16-byte aligned when ND is odd), and the tile's
-// epilogue from shared memory, as the tensor-core kernel's. Measured on an
-// H100 at K6's shapes over an f32 table: 10.2-10.6 ms against the older
-// loop's 11.4-11.7 (cuBLAS fp32: 8.2; the FFMA bound: 5.9); 8- and 32-row
+// per 32), the operands in a ring of EX_STAGES cp.async stages (mix by
+// 4-byte copies, stored k-major: its rows are not 16-byte aligned when ND
+// is odd), and the tile's epilogue from shared memory, as the tensor-core
+// kernel's. Measured on an H100 at K6's shapes over an f32 table: 10.2-10.6
+// ms against the plain loop's 11.4-11.7 (cuBLAS fp32: 8.2; the FFMA bound:
+// 5.9); 8- and 32-row
 // stages and one block per SM without spills read the same within 5%, so
 // the feed is no longer what holds it back.
 constexpr int EX_BK = 16;
@@ -1092,13 +968,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-// out[u, :] = table[ids[u], :] (converted to OutT). Pure data movement,
+// K2: out[u, :] = table[ids[u], :] converted to OutT. Pure data movement,
 // bound by device memory bandwidth: each step moves one 16-byte vector of
-// the source row (4 f32 or 8 bf16 values), neighbouring threads on
-// neighbouring addresses, rows spread over gridDim.y. Row ids are clamped
-// to the table, as the JAX caller clips them before its gather. InT/OutT:
-// f32/f32 (K3), f32/bf16 (K2), bf16/bf16 (K3 over bf16 dense rows); the
-// same-type gathers copy the bytes.
+// the source row (4 f32 values), neighbouring threads on neighbouring
+// addresses, rows spread over gridDim.y. Row ids are clamped to the table,
+// as the JAX caller clips them before its gather. InT/OutT: f32/bf16 only;
+// the same-type gathers (K3) are gather_rows_unrolled_kernel's.
 template <typename InT, typename OutT>
 __global__ void gather_rows_kernel(const int* __restrict__ ids,
                                    const InT* __restrict__ table,
@@ -1112,10 +987,7 @@ __global__ void gather_rows_kernel(const int* __restrict__ ids,
     OutT* dst = out + (long long)u * n_slots;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nv;
          i += (long long)gridDim.x * blockDim.x) {
-      if constexpr (sizeof(InT) == sizeof(OutT))
-        reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
-      else
-        store4(dst + 4 * i, __ldg(reinterpret_cast<const float4*>(src) + i));
+      store4(dst + 4 * i, __ldg(reinterpret_cast<const float4*>(src) + i));
     }
   }
 }
@@ -1123,7 +995,7 @@ __global__ void gather_rows_kernel(const int* __restrict__ ids,
 // K3 on this card: the same-type gathers are byte copies, bound by device
 // memory (each row read once and written once), so a design can only try to
 // keep enough bytes in flight per SM with as few instructions as possible.
-// On an H100 this kernel, the first port's gather_rows_kernel, a
+// On an H100 this kernel, a copy of one 16-byte load per step, a
 // shared-memory ring of cp.async.bulk copies (tried, 1-5% slower, not kept)
 // and index_select move the sparse and fused paths' rows (272-448 rows of
 // 2-4 MB) within 2% of each other, at about 85% of the card's memory rate:
@@ -1132,8 +1004,8 @@ __global__ void gather_rows_kernel(const int* __restrict__ ids,
 //
 // The register path of the same copy: each thread starts UNROLL independent
 // 16-byte loads (read-only path, not allocated in L1) before its first store,
-// so UNROLL times as many bytes are in flight per thread as in
-// gather_rows_kernel, and stores them streaming (evict-first), so the copy
+// so UNROLL times as many bytes are in flight per thread as in a copy of
+// one load per step, and stores them streaming (evict-first), so the copy
 // does not push the table rows that later kernels of the batch read out of L2.
 constexpr int GATHER_UNROLL = 8;
 
@@ -1172,7 +1044,6 @@ struct HeavyArgs {
   const float* mix;
   const __nv_bfloat16* mixb;  // mix_lists' bf16 rows [Q, ND_pad], or null
   int ND_pad;
-  int ffma;  // bf16 operands on the FFMA dense loop (timing and tests)
   const void* table;
   Lists lists;
   Entries ent;
@@ -1214,29 +1085,20 @@ void launch_heavy(const HeavyArgs& a, cudaStream_t stream) {
                                      a.n_slots, n_qblk);
   if (cudaPeekAtLastError() != cudaSuccess) return;
   if constexpr (FAST || sizeof(TabT) == 2) {
-    if (!a.ffma) {
-      auto kernel = heavy_dense_tc_kernel<TabT, ENTRIES, HST, VARIANT>;
-      static unsigned long long asked = 0;
-      if (!size_smem(kernel, TC_SMEM_BYTES, &asked)) return;
-      kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, TC_SMEM_BYTES, stream>>>(
-          a.mixb, a.ND_pad, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots,
-          n_qblk);
-      return;
-    }
+    auto kernel = heavy_dense_tc_kernel<TabT, ENTRIES, HST, VARIANT>;
+    static unsigned long long asked = 0;
+    if (!size_smem(kernel, TC_SMEM_BYTES, &asked)) return;
+    kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, TC_SMEM_BYTES, stream>>>(
+        a.mixb, a.ND_pad, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots,
+        n_qblk);
+  } else {
+    static_assert(!VARIANT, "P6 is the one-pass (bf16 operand) product");
+    auto kernel = heavy_dense_exact_kernel<ENTRIES, HST>;
+    static unsigned long long asked = 0;
+    if (!size_smem(kernel, EX_SMEM_BYTES, &asked)) return;
+    kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, EX_SMEM_BYTES, stream>>>(
+        a.mix, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots, n_qblk);
   }
-  if constexpr (!FAST && sizeof(TabT) == 4 && !VARIANT) {
-    if (!a.ffma) {
-      auto kernel = heavy_dense_exact_kernel<ENTRIES, HST>;
-      static unsigned long long asked = 0;
-      if (!size_smem(kernel, EX_SMEM_BYTES, &asked)) return;
-      kernel<<<n_sub * ((n_qblk + 1) / 2), TC_THREADS, EX_SMEM_BYTES, stream>>>(
-          a.mix, table, a.lists, a.ent, a.out, a.Q, a.ND, a.n_slots, n_qblk);
-      return;
-    }
-  }
-  heavy_dense_kernel<FAST, TabT, ENTRIES, HST, VARIANT>
-      <<<grid, THREADS, 0, stream>>>(a.mix, table, a.lists, a.ent, a.out, a.Q,
-                                     a.ND, a.n_slots, n_qblk);
 }
 
 // P6 is the one-pass (fast) product only, as the TPU probe's DEFAULT dot.
@@ -1258,82 +1120,10 @@ void dispatch_heavy(const HeavyArgs& a, int table_bf16, int fast,
 // K4. The TPU kernel DMA'd each query's window from a 1024-aligned floor into
 // VMEM, masked it, and ran k2 rounds of (max, first index, clear) over a
 // static number of blocks, so a window longer than its static bound was
-// silently cut. Here one block owns one query and runs k2 rounds of a
-// block-wide arg-max on a 64-bit key: the value's bits (order-preserving for
-// positive floats) over the inverted window index, so a larger key is a
-// larger value or, among equal values, a lower index. Each round takes the
-// largest key strictly below the last round's winner. Keys are unique, so
-// nothing is cleared, the input stays read-only, and any window length gives
-// the exact result.
-//
-// Bound: each round rereads the window from device memory (k2 passes, mostly
-// from L2); at the serving shapes (512 queries, windows of a few thousand
-// entries, k2 = 32) that is far below the sort it replaces.
-constexpr int SEL_THREADS = 512;
-constexpr int SEL_WARPS = SEL_THREADS / 32;
-
-__device__ __forceinline__ unsigned long long sel_key(float v, unsigned int j) {
-  // dead entries (v <= 0, or NaN) get key 0 and are never selected
-  return v > 0.f
-             ? (static_cast<unsigned long long>(__float_as_uint(v)) << 32) |
-                   (0xFFFFFFFFu - j)
-             : 0ull;
-}
-
-__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
-
-__global__ void __launch_bounds__(SEL_THREADS)
-per_query_topk_kernel(const float* __restrict__ scores,
-                      const long long* __restrict__ bounds, long long n,
-                      int k2, float* __restrict__ vals,
-                      long long* __restrict__ gidx) {
-  __shared__ unsigned long long red[SEL_WARPS];
-  __shared__ unsigned long long winner;
-  const int q = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  long long s = bounds[q];
-  long long e = bounds[q + 1];
-  s = s < 0 ? 0 : (s > n ? n : s);
-  e = e < s ? s : (e > n ? n : e);
-  const long long len = e - s;
-  const float* win = scores + s;
-  unsigned long long prev = ~0ull;
-  for (int r = 0; r < k2; ++r) {
-    unsigned long long best = 0;
-    for (long long i = tid; i < len; i += SEL_THREADS) {
-      const unsigned long long key = sel_key(win[i], static_cast<unsigned int>(i));
-      if (key < prev && key > best) best = key;
-    }
-    best = warp_max(best);
-    if (lane == 0) red[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      best = warp_max(lane < SEL_WARPS ? red[lane] : 0ull);
-      if (lane == 0) winner = best;
-    }
-    __syncthreads();
-    best = winner;  // the same value in every thread: the loop exits together
-    if (best == 0) break;
-    if (tid == 0) {
-      vals[(long long)q * k2 + r] = __uint_as_float(static_cast<unsigned int>(best >> 32));
-      gidx[(long long)q * k2 + r] =
-          s + (0xFFFFFFFFu - static_cast<unsigned int>(best & 0xFFFFFFFFull));
-    }
-    prev = best;
-  }
-}
-
-// K4 as callers get it: a one-pass threshold select. The kernel above makes
-// k2 dependent rounds, each rereading the window and crossing two barriers;
+// silently cut. Here any window length gives the exact result, by a
+// one-pass threshold select. k2 rounds of a block-wide arg-max (one block a
+// query, a 64-bit key) would make k2 dependent rounds, each rereading the
+// window and crossing two barriers;
 // at the serving operands (512 windows of 384 entries on average, k2 = 32)
 // that is a latency chain of 32 rounds, bound neither by bytes (0.8 MB,
 // below one launch at 3.35 TB/s) nor by arithmetic. What bounds any kernel
@@ -1532,7 +1322,7 @@ per_query_select_kernel(const float* __restrict__ scores,
 // held against its PyTorch version by
 // nextsearch_tpu_torch/benchmarks/kernel_probe.py. P2-P5 are bound by launch
 // latency at the probe's shapes (at most 128 x 1024 outputs).
-constexpr int PTS = 16;  // output tile edge of the window op and the transpose
+constexpr int PTS = 16;  // output tile edge of the transpose
 
 // P1: o[Q, T] = a[Q, W] . b[T, W]^T, an f32 FFMA dot, every output summed
 // along W in ascending order by one thread. What bounds it is instruction
@@ -1662,45 +1452,19 @@ __global__ void row_copy_kernel(const float* __restrict__ e,
 }
 
 // P3, the one-hot window op: o[q, d] = sum over the W entries w with
-// (wq[w], wd[w]) == (q, d) of wv[w]. One thread per output cell; the block
-// stages the W entries in shared memory and each thread walks them in
-// order, so repeated (q, d) entries add in entry order, as the one-hot
-// product's contraction does.
-constexpr int WIN_MAX = 1024;
-
-__global__ void window_op_kernel(const int* __restrict__ wq,
-                                 const float* __restrict__ wv,
-                                 const int* __restrict__ wd,
-                                 float* __restrict__ o, int Q, int T, int W) {
-  __shared__ int sq[WIN_MAX];
-  __shared__ int sd[WIN_MAX];
-  __shared__ float sv[WIN_MAX];
-  const int tid = threadIdx.y * PTS + threadIdx.x;
-  for (int i = tid; i < W; i += PTS * PTS) {
-    sq[i] = wq[i];
-    sd[i] = wd[i];
-    sv[i] = wv[i];
-  }
-  __syncthreads();
-  const int q = blockIdx.y * PTS + threadIdx.y;
-  const int t = blockIdx.x * PTS + threadIdx.x;
-  if (q >= Q || t >= T) return;
-  float acc = 0.f;
-  for (int w = 0; w < W; ++w)
-    if (sq[w] == q && sd[w] == t) acc += sv[w];
-  o[(long long)q * T + t] = acc;
-}
-
-// P3 as callers get it. The kernel above has every output cell walk all W
-// entries: 67M compares at the probe's shapes (Q 128, T 1024, W 512) to
-// place 512 values, where the job is bound by the bytes of the 512 KB
-// output. Here one block owns a band of output rows (one row of 1,024 cells
-// at the probe's shapes, so 128 blocks): it zero-fills the band with 16-byte
+// (wq[w], wd[w]) == (q, d) of wv[w], repeated (q, d) entries added in entry
+// order, as the one-hot product's contraction does. One thread per output
+// cell, each walking all W entries, would make 67M compares at the probe's
+// shapes (Q 128, T 1024, W 512) to place 512 values, where the job is bound
+// by the bytes of the 512 KB output.
+// Here one block owns a band of output rows (one row of 1,024 cells at the
+// probe's shapes, so 128 blocks): it zero-fills the band with 16-byte
 // stores, compacts the entries that fall in the band into shared memory in
 // entry order (each thread counts four consecutive entries, one block scan
 // places them), and the thread holding a cell's first entry sums that
 // cell's entries in entry order and stores the sum once. Work per block is
 // O(W) plus the band's entries squared, not O(W) per cell.
+constexpr int WIN_MAX = 1024;
 constexpr int WIN_THREADS = 256;
 constexpr int WIN_PER_THREAD = WIN_MAX / WIN_THREADS;
 constexpr int WIN_BAND_CELLS = 1024;  // output cells a block zero-fills, at least
@@ -1972,31 +1736,27 @@ extern "C" int ns_mix_lists(const float* mix, int round_bf16, int Q, int ND,
 }
 
 // The product launches take lists of at most GATHER_CUT entries, and, where
-// the tensor-core kernel may run (bf16 operands, ffma off), the padded bf16
-// mix.
+// the tensor-core kernel may run (bf16 operands), the padded bf16 mix.
 bool valid_shapes(int Q, int L, int ND, bool bf16_operands, const void* mixb,
-                  int ND_pad, int ffma) {
+                  int ND_pad) {
   if (Q <= 0 || L < 0 || L > GATHER_CUT) return false;
-  if (!bf16_operands || ffma) return true;
+  if (!bf16_operands) return true;
   return mixb != nullptr && ND_pad >= ND && ND_pad % TC_BK == 0;
 }
 
 // Every product entry point takes the mix lists of ns_mix_lists (lcnt,
 // lcol, lval, capacity L), made with the rounding the product applies, and
-// its bf16 rows (mixb, ND_pad; null and 0 in f32-exact mode). ffma != 0
-// sends bf16 operands' dense q-blocks down the FFMA loop in place of the
-// tensor-core kernel.
+// its bf16 rows (mixb, ND_pad; null and 0 in f32-exact mode).
 extern "C" int ns_heavy_fused3(const float* mix, const void* table,
                                int table_bf16, int fast, int h_bf16_up,
                                const int* lcnt, const int* lcol,
                                const float* lval, int L, const void* mixb,
-                               int ND_pad, int ffma, void* h, float* smax,
-                               float* cnt, int Q, int ND, long long n_slots,
+                               int ND_pad, void* h, float* smax, float* cnt,
+                               int Q, int ND, long long n_slots,
                                void* stream) {
-  if (!valid_shapes(Q, L, ND, fast || table_bf16, mixb, ND_pad, ffma))
+  if (!valid_shapes(Q, L, ND, fast || table_bf16, mixb, ND_pad))
     return static_cast<int>(cudaErrorInvalidValue);
-  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, ffma,
-                    table, Lists{lcnt, lcol, lval, L},
+  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, table, Lists{lcnt, lcol, lval, L},
                     Entries{nullptr, nullptr, nullptr, nullptr},
                     Outs{h, smax, cnt, nullptr, 1, EPI_FULL}, Q, ND, n_slots};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2010,15 +1770,14 @@ extern "C" int ns_heavy_fused3(const float* mix, const void* table,
 extern "C" int ns_unified_fused(const float* mix, const void* table,
                                 int table_bf16, int fast, const int* lcnt,
                                 const int* lcol, const float* lval, int L,
-                                const void* mixb, int ND_pad, int ffma,
+                                const void* mixb, int ND_pad,
                                 const int* ent_doc, const int* ent_q,
                                 const float* ent_val, const int* ent_off,
                                 float* totals, float* smax, float* cnt, int Q,
                                 int ND, long long n_slots, void* stream) {
-  if (!valid_shapes(Q, L, ND, fast || table_bf16, mixb, ND_pad, ffma))
+  if (!valid_shapes(Q, L, ND, fast || table_bf16, mixb, ND_pad))
     return static_cast<int>(cudaErrorInvalidValue);
-  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, ffma,
-                    table, Lists{lcnt, lcol, lval, L},
+  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, table, Lists{lcnt, lcol, lval, L},
                     Entries{ent_doc, ent_q, ent_val, ent_off},
                     Outs{totals, smax, cnt, nullptr, 1, EPI_FULL}, Q, ND,
                     n_slots};
@@ -2034,14 +1793,13 @@ extern "C" int ns_heavy_variant(const float* mix, const void* table,
                                 int table_bf16, int h_bf16_rn, int store_h,
                                 int epi, const int* lcnt, const int* lcol,
                                 const float* lval, int L, const void* mixb,
-                                int ND_pad, int ffma, void* h, float* smax,
-                                float* cnt, float* cnt_s, float* part, int Q,
-                                int ND, long long n_slots, void* stream) {
-  if (!valid_shapes(Q, L, ND, true, mixb, ND_pad, ffma))
+                                int ND_pad, void* h, float* smax, float* cnt,
+                                float* cnt_s, float* part, int Q, int ND,
+                                long long n_slots, void* stream) {
+  if (!valid_shapes(Q, L, ND, true, mixb, ND_pad))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, ffma,
-                    table, Lists{lcnt, lcol, lval, L},
+  const HeavyArgs a{mix, static_cast<const __nv_bfloat16*>(mixb), ND_pad, table, Lists{lcnt, lcol, lval, L},
                     Entries{nullptr, nullptr, nullptr, nullptr},
                     Outs{h, smax, epi == EPI_REDUCED ? cnt_s : cnt, part,
                          store_h, epi},
@@ -2058,13 +1816,11 @@ extern "C" int ns_heavy_variant(const float* mix, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same-type (K3) copies run gather_rows_unrolled_kernel; first != 0
-// launches the first port's gather_rows_kernel in its place, so that one
-// process can time the two on the same operands. The converting gather (K2)
-// is always gather_rows_kernel.
+// The same-type (K3) copies run gather_rows_unrolled_kernel, the converting
+// gather (K2) gather_rows_kernel.
 extern "C" int ns_gather_rows(const int* ids, const void* table, int in_bf16,
                               void* out, int out_bf16, int n_ids, int n_rows,
-                              long long n_slots, int first, void* stream) {
+                              long long n_slots, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16 && !out_bf16)
     return static_cast<int>(cudaErrorInvalidValue);  // bf16 -> f32 unused
@@ -2075,44 +1831,27 @@ extern "C" int ns_gather_rows(const int* ids, const void* table, int in_bf16,
   if (bx < 1) bx = 1;
   const unsigned int gy = static_cast<unsigned int>(n_ids < 65535 ? n_ids : 65535);
   const dim3 grid(static_cast<unsigned int>(bx), gy);
-  const bool copy = (in_bf16 != 0) == (out_bf16 != 0);
-  if (copy && !first) {
+  if ((in_bf16 != 0) == (out_bf16 != 0)) {
     gather_rows_unrolled_kernel<<<grid, threads, 0, s>>>(
         ids, static_cast<const uint4*>(table), static_cast<uint4*>(out), n_ids,
         n_rows, nv);
-  } else if (in_bf16) {
-    gather_rows_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, threads, 0, s>>>(
-        ids, static_cast<const __nv_bfloat16*>(table),
-        static_cast<__nv_bfloat16*>(out), n_ids, n_rows, n_slots);
-  } else if (out_bf16) {
+  } else {
     gather_rows_kernel<float, __nv_bfloat16><<<grid, threads, 0, s>>>(
         ids, static_cast<const float*>(table), static_cast<__nv_bfloat16*>(out),
         n_ids, n_rows, n_slots);
-  } else {
-    gather_rows_kernel<float, float><<<grid, threads, 0, s>>>(
-        ids, static_cast<const float*>(table), static_cast<float*>(out), n_ids,
-        n_rows, n_slots);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// first != 0 launches the first port's per_query_topk_kernel, which writes
-// only the live slots (the caller zero-fills), so that one process can time
-// the two on the same operands; callers get per_query_select_kernel, which
-// writes every slot and takes k2 <= SEL_K2_MAX.
+// per_query_select_kernel writes every slot and takes k2 <= SEL_K2_MAX.
 extern "C" int ns_per_query_topk(const float* scores, const long long* bounds,
                                  long long n, int n_queries, int k2,
-                                 float* vals, long long* gidx, int first,
-                                 void* stream) {
+                                 float* vals, long long* gidx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_queries <= 0 || k2 < 1 || (!first && k2 > SEL_K2_MAX))
+  if (n_queries <= 0 || k2 < 1 || k2 > SEL_K2_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (first)
-    per_query_topk_kernel<<<n_queries, SEL_THREADS, 0, s>>>(scores, bounds, n,
-                                                            k2, vals, gidx);
-  else
-    per_query_select_kernel<<<n_queries, SELECT_THREADS, 0, s>>>(
-        scores, bounds, n, k2, vals, gidx);
+  per_query_select_kernel<<<n_queries, SELECT_THREADS, 0, s>>>(
+      scores, bounds, n, k2, vals, gidx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2159,22 +1898,14 @@ extern "C" int ns_probe_row_copy(const float* e, const int* off, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// first != 0 launches the first port's window_op_kernel (one thread per
-// cell) in place of window_band_kernel, for the A/B.
 extern "C" int ns_probe_window_op(const int* wq, const float* wv, const int* wd,
-                                  float* o, int Q, int T, int W, int first,
-                                  void* stream) {
+                                  float* o, int Q, int T, int W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (W > WIN_MAX || Q <= 0 || T <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (first) {
-    window_op_kernel<<<probe_tiles(Q, T), dim3(PTS, PTS), 0, s>>>(wq, wv, wd, o,
-                                                                 Q, T, W);
-  } else {
-    const int rows = (WIN_BAND_CELLS + T - 1) / T;
-    window_band_kernel<<<(Q + rows - 1) / rows, WIN_THREADS, 0, s>>>(
-        wq, wv, wd, o, Q, T, W, rows);
-  }
+  const int rows = (WIN_BAND_CELLS + T - 1) / T;
+  window_band_kernel<<<(Q + rows - 1) / rows, WIN_THREADS, 0, s>>>(
+      wq, wv, wd, o, Q, T, W, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -120,7 +120,6 @@ def _pick_shape(
 
 
 _EMPTY_I64 = np.empty(0, np.int64)
-_EMPTY_F32 = np.empty(0, np.float32)
 
 
 def _ranges(counts: np.ndarray) -> np.ndarray:
@@ -134,43 +133,12 @@ def _ranges(counts: np.ndarray) -> np.ndarray:
     return out
 
 
-def _probe_queries(slices, queries):
-    """Per query: merged-lexicon row indices + repeated weights.
-
-    One _lex_slices dict probe per (query, term); occurrences expand to
-    consecutive table rows via np.repeat + _ranges. probe_workload's;
-    plan_full, plan_sparse and the sharded planner use the flat variant.
-    """
-    q_rows: List[np.ndarray] = []
-    q_ws: List[np.ndarray] = []
-    for terms in queries:
-        offs: List[int] = []
-        cnts: List[int] = []
-        ws: List[float] = []
-        for term, w in terms:
-            oc = slices.get(term)
-            if oc is not None:
-                offs.append(oc[0])
-                cnts.append(oc[1])
-                ws.append(w)
-        if offs:
-            cnts_a = np.asarray(cnts, np.int64)
-            q_rows.append(
-                np.repeat(np.asarray(offs, np.int64), cnts_a)
-                + _ranges(cnts_a)
-            )
-            q_ws.append(np.repeat(np.asarray(ws, np.float32), cnts_a))
-        else:
-            q_rows.append(_EMPTY_I64)
-            q_ws.append(_EMPTY_F32)
-    return q_rows, q_ws
-
-
 def _probe_queries_flat(slices, queries):
-    """Flat variant of _probe_queries for the serving-path planner: one
-    dict probe per (query, term), ONE numpy expansion for the whole batch
-    (the per-query list-of-arrays variant costs ~10 small numpy calls per
-    query — ~20 ms of serial host time at batch 512, measured).
+    """Merged-lexicon row indices and repeated weights of a batch: one
+    dict probe per (query, term); occurrences expand to consecutive table
+    rows in ONE numpy expansion for the whole batch (a per-query
+    list-of-arrays probe costs ~10 small numpy calls per query — ~20 ms of
+    serial host time at batch 512, measured).
 
     Returns (rows_flat int64, ws_flat f32, q_lens int64[len(queries)]):
     merged-table row ids and weights in (query, term-occurrence) order,
@@ -660,20 +628,21 @@ class SparsePlanner:
         for b in batches:
             q = max(q, len(b))
             b, _f = self._shortcut_single_heavy(b, shortcut_k)
-            q_rows, _q_ws = _probe_queries(self._lex_slices, b)
-            rows_all = [r for r in q_rows if r.shape[0]]
-            if not rows_all:
+            rows, _ws, q_lens = _probe_queries_flat(self._lex_slices, b)
+            if not rows.shape[0]:
                 continue
-            t = max(t, max(r.shape[0] for r in rows_all))
-            for r in rows_all:
-                ent_q = table[r]
-                w = max(w, int(ent_q[ent_q[:, 2] < 0, 1].sum()))
-            ent = table[np.concatenate(rows_all)]
+            t = max(t, int(q_lens.max()))
+            ent = table[rows]
             dense = ent[:, 2]
-            light_df = ent[dense < 0, 1]
+            light = dense < 0
+            # each query's summed light dfs, over its q_lens segment
+            starts = (np.cumsum(q_lens) - q_lens)[q_lens > 0]
+            w = max(w, int(np.add.reduceat(np.where(light, ent[:, 1], 0),
+                                           starts).max()))
+            light_df = ent[light, 1]
             c = max(c, int(np.sum((light_df + block - 1) // block)))
             u = max(u, int(np.unique(dense[dense >= 0]).shape[0]))
-            li = max(li, int((dense < 0).sum()))
+            li = max(li, int(light.sum()))
             hp = max(hp, int((dense >= 0).sum()))
         return {"T": t, "Q": q, "C": c, "U": u, "W": w, "L": li, "HP": hp}
 

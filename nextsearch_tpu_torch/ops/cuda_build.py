@@ -33,22 +33,20 @@ _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes; every entry returns a cudaError_t
 _SIGNATURES = {
     "ns_mix_lists": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _vp],
-    # the mix lists' arguments (count, cols, vals, L, bf16 mix, its columns,
-    # the FFMA switch) sit together in each product entry
-    "ns_heavy_fused3": [_vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _vp,
-                        _ci, _ci, _vp, _vp, _vp, _ci, _ci, _cll, _vp],
-    "ns_unified_fused": [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _vp, _ci,
-                         _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
-                         _cll, _vp],
-    "ns_heavy_variant": [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci,
-                         _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
-                         _cll, _vp],
-    "ns_gather_rows": [_vp, _vp, _ci, _vp, _ci, _ci, _ci, _cll, _ci, _vp],
-    "ns_per_query_topk": [_vp, _vp, _cll, _ci, _ci, _vp, _vp, _ci, _vp],
+    # the mix lists' arguments (count, cols, vals, L, bf16 mix, its columns)
+    # sit together in each product entry
+    "ns_heavy_fused3": [_vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _vp, _ci,
+                        _vp, _vp, _vp, _ci, _ci, _cll, _vp],
+    "ns_unified_fused": [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _vp, _ci, _vp,
+                         _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _cll, _vp],
+    "ns_heavy_variant": [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _ci, _vp,
+                         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _cll, _vp],
+    "ns_gather_rows": [_vp, _vp, _ci, _vp, _ci, _ci, _ci, _cll, _vp],
+    "ns_per_query_topk": [_vp, _vp, _cll, _ci, _ci, _vp, _vp, _vp],
     "ns_score_epilogue": [_vp, _vp, _ci, _ci, _cll, _cll, _vp, _vp, _ci, _vp],
     "ns_probe_nt_dot": [_vp, _vp, _vp, _ci, _ci, _ci, _vp],
     "ns_probe_row_copy": [_vp, _vp, _vp, _ci, _ci, _ci, _vp],
-    "ns_probe_window_op": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _vp],
+    "ns_probe_window_op": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _vp],
     "ns_probe_copy": [_vp, _vp, _cll, _vp],
     "ns_probe_transpose": [_vp, _vp, _ci, _ci, _vp],
 }

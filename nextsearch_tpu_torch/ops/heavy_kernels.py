@@ -130,24 +130,21 @@ def mix_lists(mix: torch.Tensor, round_bf16: bool, cap=None, *,
     return (count, cols, vals, mixb) if with_bf16 else (count, cols, vals)
 
 
-def _lists_args(mix, round_bf16: bool, list_cap, ffma: bool):
-    """ctypes arguments (count, cols, vals, L, bf16 mix, its columns, the
-    FFMA switch) of a product launch, and the tensors, which the caller
-    keeps alive until the launch is queued. The bf16 mix goes with every
-    launch that rounds mix (null and 0 otherwise).
+def _lists_args(mix, round_bf16: bool, list_cap):
+    """ctypes arguments (count, cols, vals, L, bf16 mix, its columns) of a
+    product launch, and the tensors, which the caller keeps alive until the
+    launch is queued. The bf16 mix goes with every launch that rounds mix
+    (null and 0 otherwise).
 
-    Every product wrapper takes two switches for the card tests and the
-    probes, which compare and time its paths on the same operands:
-    list_cap, the lists' capacity (None takes min(ND, GATHER_CUT); 0 sends
-    every block with a nonzero mix entry down the dense product), and
-    ffma=True, which sends every dense block down the first port's FFMA
-    loop (heavy_dense_kernel) in place of the tensor-core kernel (bf16
-    operands) or the cp.async-fed FFMA kernel (f32-exact)."""
+    Every product wrapper takes list_cap for the card tests and the probes,
+    which compare and time its paths on the same operands: the lists'
+    capacity (None takes min(ND, GATHER_CUT); 0 sends every block with a
+    nonzero mix entry down the dense product)."""
     lists = mix_lists(mix, round_bf16, list_cap, with_bf16=round_bf16)
     mixb = lists[3] if round_bf16 else None
     return (lists[0].data_ptr(), lists[1].data_ptr(), lists[2].data_ptr(),
             lists[1].shape[1], mixb.data_ptr() if round_bf16 else None,
-            mixb.shape[1] if round_bf16 else 0, int(bool(ffma))), lists
+            mixb.shape[1] if round_bf16 else 0), lists
 
 
 # ---------------------------------------------------------------- K1
@@ -254,7 +251,7 @@ def _rounds_mix(table, fast: bool) -> bool:
     return bool(fast) or table.dtype == torch.bfloat16
 
 
-def _launch_fused(fn, name, mix, table, fast, h_dtype, list_cap, ffma):
+def _launch_fused(fn, name, mix, table, fast, h_dtype, list_cap):
     """One ns_heavy_fused3 launch (K1 or K6) after its mix_lists pre-pass,
     counted on fn."""
     _check_heavy_operands(name, mix, table)
@@ -265,8 +262,7 @@ def _launch_fused(fn, name, mix, table, fast, h_dtype, list_cap, ffma):
     lib = library()
     dev = table.device
     (q, nd), n_slots = mix.shape, table.shape[1]
-    largs, _lists = _lists_args(mix, _rounds_mix(table, fast), list_cap,
-                                ffma)
+    largs, _lists = _lists_args(mix, _rounds_mix(table, fast), list_cap)
     h, smax, cnt = _heavy_outputs(q, n_slots, dev, h_dtype)
     with torch.cuda.device(dev):
         rc = lib.ns_heavy_fused3(
@@ -282,7 +278,7 @@ def _launch_fused(fn, name, mix, table, fast, h_dtype, list_cap, ffma):
 
 
 def heavy_fused3(mix: torch.Tensor, table: torch.Tensor, *, fast: bool,
-                 h_dtype=torch.float32, list_cap=None, ffma: bool = False):
+                 h_dtype=torch.float32, list_cap=None):
     """H = mix @ table, per-128-doc sub-block max and per-tile count of H > 0.
 
     Replaces nextsearch_tpu/ops/heavy_pallas.py heavy_fused3_pallas (K1).
@@ -305,10 +301,10 @@ def heavy_fused3(mix: torch.Tensor, table: torch.Tensor, *, fast: bool,
     (ND / 8 + 8) * 2^-23 relative, while H > 0 and cnt are
     the same bit for bit (the operands are non-negative), smax is the max
     of the launch's own H and a bf16 H the rounding of its own f32 sums.
-    K5, K6 and P6 launch it the same way. list_cap and ffma: _lists_args.
+    K5, K6 and P6 launch it the same way. list_cap: _lists_args.
     """
     return _launch_fused(heavy_fused3, "heavy_fused3", mix, table, fast,
-                         h_dtype, list_cap, ffma)
+                         h_dtype, list_cap)
 
 
 # ---------------------------------------------------------------- K6
@@ -321,7 +317,7 @@ def heavy_fused_ref(mix: torch.Tensor, dense: torch.Tensor, *, fast: bool,
 
 
 def heavy_fused(mix: torch.Tensor, dense: torch.Tensor, *, fast: bool = False,
-                h_dtype=torch.float32, list_cap=None, ffma: bool = False):
+                h_dtype=torch.float32, list_cap=None):
     """The 2D fused heavy kernel: heavy_fused3's function over a 2D table.
 
     Replaces nextsearch_tpu/ops/heavy_pallas.py heavy_fused_pallas (K6). On
@@ -333,7 +329,7 @@ def heavy_fused(mix: torch.Tensor, dense: torch.Tensor, *, fast: bool = False,
     h_dtype (bf16 rounded up), smax [sub_pad, Q], cnt [tiles_pad, Q].
     """
     return _launch_fused(heavy_fused, "heavy_fused", mix, dense, fast,
-                         h_dtype, list_cap, ffma)
+                         h_dtype, list_cap)
 
 
 # ---------------------------------------------------------------- P6
@@ -369,7 +365,7 @@ def heavy_fused_variant_ref(mix: torch.Tensor, dense: torch.Tensor, *,
 def heavy_fused_variant(mix: torch.Tensor, dense: torch.Tensor, *,
                         epilogue: bool = True, store_h: bool = True,
                         smax_store: bool = True, h_dtype=torch.float32,
-                        list_cap=None, ffma: bool = False):
+                        list_cap=None):
     """K6's one-pass (fast) launch with a part taken out, for timing.
 
     Replaces nextsearch_tpu's benchmarks/probe_fusedmm.py fused_variant
@@ -403,7 +399,7 @@ def heavy_fused_variant(mix: torch.Tensor, dense: torch.Tensor, *,
                            dtype=torch.float32, device=dev)
     else:
         cnt_s = part = cnt
-    largs, _lists = _lists_args(mix, True, list_cap, ffma)
+    largs, _lists = _lists_args(mix, True, list_cap)
     with torch.cuda.device(dev):
         rc = lib.ns_heavy_variant(
             mix.data_ptr(), dense.data_ptr(),
@@ -453,7 +449,7 @@ def unified_fused_ref(mix, table, sd, sq, sv, *, fast: bool):
 
 def unified_fused(mix: torch.Tensor, table: torch.Tensor, sd: torch.Tensor,
                   sq: torch.Tensor, sv: torch.Tensor, *, fast: bool,
-                  list_cap=None, ffma: bool = False):
+                  list_cap=None):
     """Unified totals: mix @ table plus every light entry, and K1's
     per-sub-block max and per-tile positive count of the sum.
 
@@ -487,8 +483,7 @@ def unified_fused(mix: torch.Tensor, table: torch.Tensor, sd: torch.Tensor,
     # entry offsets per 128-doc sub-block (the kernel's grid column)
     edges = torch.arange(0, n_slots + 1, CSUB, dtype=torch.int32, device=dev)
     eoff = torch.searchsorted(sd32, edges).to(torch.int32)
-    largs, _lists = _lists_args(mix, _rounds_mix(table, fast), list_cap,
-                                ffma)
+    largs, _lists = _lists_args(mix, _rounds_mix(table, fast), list_cap)
     totals, smax, cnt = _heavy_outputs(q, n_slots, dev)
     with torch.cuda.device(dev):
         rc = lib.ns_unified_fused(
@@ -516,7 +511,7 @@ def gather_rows_bf16_ref(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor
     return table[ids].to(torch.bfloat16)
 
 
-def _gather(ids, table, out_dtype, name, fn, first=False):
+def _gather(ids, table, out_dtype, name, fn):
     if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{name}: ids must be a 1D integer tensor")
     in_dtype = torch.bfloat16 if fn is gather_bf16_rows else torch.float32
@@ -545,31 +540,26 @@ def _gather(ids, table, out_dtype, name, fn, first=False):
             ids32.data_ptr(), table.data_ptr(),
             int(table.dtype == torch.bfloat16), out.data_ptr(),
             int(out_dtype == torch.bfloat16), ids.numel(), n_rows, n_slots,
-            int(first), stream(dev),
+            stream(dev),
         )
     check_rc(rc, name)
     fn.launches += 1
     return out
 
 
-def gather_rows(ids: torch.Tensor, table: torch.Tensor, *,
-                first: bool = False) -> torch.Tensor:
+def gather_rows(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """table[ids] as f32 whole-row copies.
 
     Replaces nextsearch_tpu/ops/heavy_pallas.py gather_rows_pallas (K3).
     ids int [uc] (clipped to the table's rows by the caller, clamped again
     by the kernel); table f32 [rows, n_slots] -> f32 [uc, n_slots]. The
     compact table of the sparse mode's exact launch, and the row gather of
-    the fused mode's heavy_scores (ops/bm25.py). first=True launches the
-    first port's one-vector-per-trip kernel in place of the unrolled copy:
-    the card tests and chip_smoke.py time and compare the two on the same
-    operands with it; no serving path passes it.
+    the fused mode's heavy_scores (ops/bm25.py).
     """
-    return _gather(ids, table, torch.float32, "gather_rows", gather_rows, first)
+    return _gather(ids, table, torch.float32, "gather_rows", gather_rows)
 
 
-def gather_bf16_rows(ids: torch.Tensor, table: torch.Tensor, *,
-                     first: bool = False) -> torch.Tensor:
+def gather_bf16_rows(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """table[ids] of a bf16 table, kept bf16: K3 over the bf16 dense rows.
 
     Replaces gather_rows_pallas (K3) where the table is bf16
@@ -578,7 +568,7 @@ def gather_bf16_rows(ids: torch.Tensor, table: torch.Tensor, *,
     half the bytes, counted in gather_bf16_rows.launches.
     """
     return _gather(ids, table, torch.bfloat16, "gather_bf16_rows",
-                   gather_bf16_rows, first)
+                   gather_bf16_rows)
 
 
 def gather_rows_bf16(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -110,13 +110,12 @@ def window_op_ref(wq: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor, *,
 
 
 def window_op(wq: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor, *,
-              q: int, tile: int, first: bool = False) -> torch.Tensor:
+              q: int, tile: int) -> torch.Tensor:
     """The one-hot window op of mosaic_probe t3: o f32 [q, tile] with
     o[wq[w], wd[w]] += wv[w] for each of the W entries (wq, wd int in
     range, wv f32; W <= 1024), entries of one cell added in entry order.
     The kernel zero-fills one band of rows a block and sums each cell's
-    entries once; first=True launches the first port's kernel (one thread
-    per cell, walking every entry) instead, only for the A/B."""
+    entries once."""
     if not (wq.dim() == wv.dim() == wd.dim() == 1
             and wq.shape == wv.shape == wd.shape):
         raise ValueError("window_op: wq, wv, wd must be 1D of one length")
@@ -135,7 +134,7 @@ def window_op(wq: torch.Tensor, wv: torch.Tensor, wd: torch.Tensor, *,
     o = torch.empty((q, tile), dtype=torch.float32, device=wv.device)
     _launch(window_op, "window_op", "ns_probe_window_op", wq32.data_ptr(),
             wv.data_ptr(), wd32.data_ptr(), o.data_ptr(), q, tile, wv.numel(),
-            int(first), dev=wv.device)
+            dev=wv.device)
     return o
 
 

@@ -11,8 +11,7 @@ and launches the kernel (``ns_per_query_topk`` in
 tensors, raising if the launch fails; it counts
 launches in ``per_query_topk.launches``. The kernel is a one-pass threshold
 select (a radix select of the k2-th largest value, then the ties in window
-order); ``first=True`` launches the first port's k2-round kernel instead,
-only so that one process can time the two on the same operands.
+order).
 """
 
 from __future__ import annotations
@@ -57,8 +56,7 @@ def per_query_topk_ref(scores: torch.Tensor, bounds: torch.Tensor, k2: int):
     return vals, gidx
 
 
-def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int, *,
-                   first: bool = False):
+def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int):
     """Each query's top-k2 entries of its window of a flat array.
 
     scores f32 [N]; bounds int [Q+1], query q's window is
@@ -88,16 +86,14 @@ def per_query_topk(scores: torch.Tensor, bounds: torch.Tensor, k2: int, *,
     q_count = bounds.numel() - 1
     scores = scores.contiguous()
     b64 = bounds.to(torch.int64).contiguous()
-    # the first kernel writes only the live slots
-    alloc = torch.zeros if first else torch.empty
-    vals = alloc((q_count, k2), dtype=torch.float32, device=dev)
-    gidx = alloc((q_count, k2), dtype=torch.int64, device=dev)
+    vals = torch.empty((q_count, k2), dtype=torch.float32, device=dev)
+    gidx = torch.empty((q_count, k2), dtype=torch.int64, device=dev)
     if q_count == 0:
         return vals, gidx
     with torch.cuda.device(dev):
         rc = lib.ns_per_query_topk(
             scores.data_ptr(), b64.data_ptr(), scores.numel(), q_count, k2,
-            vals.data_ptr(), gidx.data_ptr(), int(first), stream(dev),
+            vals.data_ptr(), gidx.data_ptr(), stream(dev),
         )
     check_rc(rc, "per_query_topk")
     per_query_topk.launches += 1

@@ -342,10 +342,9 @@ def test_gather_rows_against_the_jax_kernel(bf16):
         ref = gather_rows_pallas(jnp.asarray(ids), jt.reshape(11, 16, 128))
     ref = np.asarray(ref.astype(jnp.float32)).reshape(8, 2048)
     fn = hk.gather_bf16_rows if bf16 else hk.gather_rows
-    for first in (False, True):
-        got = fn(_t(ids), tt, first=first)
-        assert got.dtype == tt.dtype
-        assert np.array_equal(_n(got).view(np.uint32), ref.view(np.uint32))
+    got = fn(_t(ids), tt)
+    assert got.dtype == tt.dtype
+    assert np.array_equal(_n(got).view(np.uint32), ref.view(np.uint32))
     assert fn.launches == 0  # CPU tensors: the plain version, no launch
 
 

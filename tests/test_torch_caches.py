@@ -17,6 +17,25 @@ RESULTS = {
 }
 
 
+@pytest.fixture()
+def lru():
+    """LRUCache(...), with each write-behind cache's flush thread stopped
+    after the test; it would otherwise wait out its flush_ms (1e9 here) for
+    the rest of the process, and a join of every flush thread (the
+    harness's stop_flushers) would wait for it."""
+    made = []
+
+    def make(*args, **kw):
+        made.append(LRUCache(*args, **kw))
+        return made[-1]
+
+    yield make
+    for cache in made:
+        stop = getattr(cache, "_flush_stop", None)
+        if stop is not None:
+            stop.set()
+
+
 def rendered(result: dict) -> Rendered:
     return Rendered(json.dumps(result, separators=(",", ":"),
                                ensure_ascii=False).encode())
@@ -120,8 +139,8 @@ class Model:
 @pytest.mark.parametrize("flush_ms,save_interval", [(1e9, 1), (0.0, 1),
                                                     (0.0, 3)])
 @pytest.mark.parametrize("prefill", [0, 2, 4])
-def test_put_many_equals_puts_one_by_one(tmp_path, monkeypatch, flush_ms,
-                                         save_interval, prefill):
+def test_put_many_equals_puts_one_by_one(tmp_path, monkeypatch, lru,
+                                         flush_ms, save_interval, prefill):
     """put_many and the same puts one by one leave the model's recency
     order, evictions, dirty flag, save counter and saved file, written
     behind (flush_ms; the flush thread never wakes here) and through every
@@ -149,7 +168,7 @@ def test_put_many_equals_puts_one_by_one(tmp_path, monkeypatch, flush_ms,
     for way in ("one_by_one", "many"):
         path = tmp_path / way / "c.json"
         path.parent.mkdir()
-        cache = LRUCache(5, path, save_interval, tag="t", flush_ms=flush_ms)
+        cache = lru(5, path, save_interval, tag="t", flush_ms=flush_ms)
         for key, result in items[:prefill]:
             cache.put(key, result)
         if prefill:
@@ -170,10 +189,10 @@ def test_put_many_equals_puts_one_by_one(tmp_path, monkeypatch, flush_ms,
         assert len(evictions) == (1 if way == "many" else want["evicted"])
 
 
-def test_put_many_of_present_keys_only_refreshes_them(tmp_path):
+def test_put_many_of_present_keys_only_refreshes_them(tmp_path, lru):
     """Updates of keys already held move them to the newest end, evict
     nothing and leave a write-behind cache clean, as put does."""
-    cache = LRUCache(3, tmp_path / "c.json", flush_ms=1e9)
+    cache = lru(3, tmp_path / "c.json", flush_ms=1e9)
     cache.put_many([("a|1", 1), ("b|1", 2), ("c|1", 3)])
     cache._dirty = False
     cache.put_many([("a|1", 10), ("b|1", 20)])

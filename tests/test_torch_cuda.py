@@ -14,10 +14,9 @@ H and smax within (ND / 8 + 8) * 2^-23 relative, cnt and H > 0 still bit for
 bit; P6 as K6, its reduced smax within 1e-6 relative; P1
 within 2 * 512 * 2^-24 relative (two orders of a 512-term positive sum),
 P3 within 1e-6 (a few entries per cell at most) and, in its own test,
-both of its kernels bit for bit against np.add.at; K4's threshold select
-and its first kernel on cases aimed at the select's steps; P2, P4 and P5
-bit for bit; K3's two copy kernels bit for bit, and P1's tiled kernel at ragged
-shapes. score_epilogue bit for bit (scores, found, tile_max) against its
+bit for bit against np.add.at; K4's threshold select on cases aimed at the
+select's steps; P2, P4 and P5 bit for bit; K3's copy kernel bit for bit,
+and P1's tiled kernel at ragged shapes. score_epilogue bit for bit (scores, found, tile_max) against its
 plain version at odd shapes, off 16-byte alignment and at Q 512 x
 1,001,472, once per fused, exact and fast launch, and replayed by a graphed
 fused launch. The whole TorchIndex on
@@ -261,8 +260,7 @@ K4_CASES = [
 @pytest.mark.parametrize("case", K4_CASES, ids=[
     "-".join(map(str, c)) for c in K4_CASES])
 def test_per_query_topk_matches_plain(cuda, case):
-    """Both kernels (the threshold select that callers get, and the first
-    port's behind first=True) bit-equal to the plain version."""
+    """The threshold select bit-equal to the plain version."""
     from nextsearch_tpu_torch.ops import select_kernels as sk
 
     if len(case) == 3:
@@ -272,13 +270,12 @@ def test_per_query_topk_matches_plain(cuda, case):
         name, k2 = case
         scores, bounds = _threshold_case(name, k2, cuda)
     rv, rg = sk.per_query_topk_ref(scores, bounds, k2)
-    for first in (False, True):
-        n0 = sk.per_query_topk.launches
-        v, g = sk.per_query_topk(scores, bounds, k2, first=first)
-        assert sk.per_query_topk.launches == n0 + 1
-        torch.cuda.synchronize()
-        assert torch.equal(v.view(torch.int32), rv.view(torch.int32)), first
-        assert torch.equal(g, rg), first
+    n0 = sk.per_query_topk.launches
+    v, g = sk.per_query_topk(scores, bounds, k2)
+    assert sk.per_query_topk.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(v.view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(g, rg)
     assert bool((v > 0).any())
 
 
@@ -451,8 +448,7 @@ def _window_case(case, g):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["four_in_a_cell", "three_cells", "last_row"])
 def test_window_op_matches_entry_order_sum(cuda, case):
-    """P3's two kernels (the band kernel that callers get, the first port's
-    behind first=True) bit-equal to np.add.at, the entries of a cell added
+    """P3's band kernel bit-equal to np.add.at, the entries of a cell added
     in entry order into 0. Against the plain version (index_put_ with
     accumulate): bit for bit where no cell holds 32 entries; past that
     PyTorch sums a cell's entries a warp at a time, so within 512 * 2^-24
@@ -466,16 +462,15 @@ def test_window_op_matches_entry_order_sum(cuda, case):
     wq, wv, wd = wq.to(cuda), wv.to(cuda), wd.to(cuda)
     plain = pk.window_op_ref(wq, wv, wd, q=q, tile=tile)
     crowded = int(torch.bincount(wq * tile + wd).max()) >= 32
-    for first in (False, True):
-        n0 = pk.window_op.launches
-        got = pk.window_op(wq, wv, wd, q=q, tile=tile, first=first)
-        torch.cuda.synchronize()
-        assert pk.window_op.launches == n0 + 1
-        assert torch.equal(got, want), first
-        if crowded:
-            torch.testing.assert_close(got, plain, rtol=512 * 2.0 ** -24, atol=0)
-        else:
-            assert torch.equal(got, plain), first
+    n0 = pk.window_op.launches
+    got = pk.window_op(wq, wv, wd, q=q, tile=tile)
+    torch.cuda.synchronize()
+    assert pk.window_op.launches == n0 + 1
+    assert torch.equal(got, want)
+    if crowded:
+        torch.testing.assert_close(got, plain, rtol=512 * 2.0 ** -24, atol=0)
+    else:
+        assert torch.equal(got, plain)
     assert crowded == (case == "three_cells")
 
 
@@ -569,7 +564,7 @@ def test_mix_lists_kernel_bit_exact(cuda, kind, q, nd):
 
 def _tc_rtol(nd):
     """Tolerance of the tensor-core dense kernel's H and smax against the
-    plain version, the gather and the FFMA loop: the same exact bf16 x bf16
+    plain version and the gather: the same exact bf16 x bf16
     products, nd non-negative terms added in f32; the tensor cores round
     (toward zero) once per 16-term mma step, so nd / 16 steps of 2^-23,
     doubled for the other side's own rounding, plus 8 steps for short
@@ -596,10 +591,9 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind):
     every P6 switch over one mix, against the same launch with the lists'
     capacity forced to 0 (every block with a nonzero entry takes a dense
     kernel). f32-exact launches (the FFMA loop): bit-equal to the gather.
-    bf16 operands: the FFMA loop (ffma=True) is still bit-equal to the
-    gather, and the tensor-core kernel agrees with it in cnt and H > 0 bit
-    for bit and in H and smax within _tc_rtol; its smax is the max of its
-    own H and its bf16 H the rounding of its own f32 H."""
+    bf16 operands: the tensor-core kernel agrees with the gather in cnt and
+    H > 0 bit for bit and in H and smax within _tc_rtol; its smax is the
+    max of its own H and its bf16 H the rounding of its own f32 H."""
     from nextsearch_tpu_torch.ops import heavy_kernels as hk
 
     q, nd, n_slots = 200, 64, 6144
@@ -614,29 +608,17 @@ def test_gather_and_dense_paths_match_plain_and_each_other(cuda, kind):
     lists0 = hk.mix_lists.launches
     calls0 = sum(f.launches for f in products)
 
-    def forced(call, ffma=False):
-        return call(list_cap=0, ffma=ffma)
-
     def both(call, bf16_operands):
         """(the launch as it routes itself, the launch forced dense)."""
-        got, dense = call(), forced(call)
+        got, dense = call(), call(list_cap=0)
         torch.cuda.synchronize()
         if not bf16_operands:
-            # the gather, the cp.async-fed FFMA kernel and the older loop
-            # run the same fmaf chains
-            old = forced(call, ffma=True)
-            torch.cuda.synchronize()
-            for a, b, c in zip(got, dense, old):
+            # the gather and the cp.async-fed FFMA kernel run the same
+            # fmaf chains
+            for a, b in zip(got, dense):
                 assert torch.equal(_bits(a), _bits(b))
-                assert torch.equal(_bits(a), _bits(c))
             return got, dense
-        old = forced(call, ffma=True)
-        got_old = call(ffma=True)
-        torch.cuda.synchronize()
-        for a, b in zip(got_old, old):  # the gather and the FFMA loop
-            assert torch.equal(_bits(a), _bits(b))
-        _close(dense, old, tol)
-        _close(got, old, tol)
+        _close(dense, got, tol)
         return got, dense
 
     for fast, tab in ((False, table), (True, table), (False, tab16),
@@ -746,8 +728,7 @@ def test_dense_tensor_core_kernel_matches_plain(cuda, q, nd, bf16_table):
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n_ids", [1, 448, 70_000])
 def test_k3_copies_bit_exact(cuda, n_ids, bf16):
-    """K3's two copy kernels (the unrolled register copy every caller
-    gets, the first port's kernel) against the plain version, bit for bit:
+    """K3's unrolled register copy against the plain version, bit for bit:
     rows that are no multiple of a thread's unrolled trip, ids out of range
     (clamped), more ids than one grid dimension holds; an empty id list is
     refused."""
@@ -762,12 +743,11 @@ def test_k3_copies_bit_exact(cuda, n_ids, bf16):
     if bf16:
         table, fn = table.to(torch.bfloat16), hk.gather_bf16_rows
     want = hk.gather_rows_ref(ids.long().clamp(0, n_rows - 1), table)
-    for first in (False, True):
-        n0 = fn.launches
-        got = fn(ids, table, first=first)
-        torch.cuda.synchronize()
-        assert fn.launches == n0 + 1 and got.dtype == table.dtype
-        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), first
+    n0 = fn.launches
+    got = fn(ids, table)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and got.dtype == table.dtype
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     with pytest.raises(ValueError):
         fn(ids[:0], table)
 

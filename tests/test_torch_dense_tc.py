@@ -193,9 +193,7 @@ def test_mix_lists_with_bf16_rows_on_cpu(cap):
     ("cnt", 1e-3, False),       # a count may never differ
     ("sign", 1e-3, False),      # nor H > 0
 ])
-def test_probe_dense_compare(change, rtol, ok):
-    from nextsearch_tpu_torch.benchmarks import probe_dense
-
+def test_chip_smoke_compare(change, rtol, ok):
     g = torch.Generator().manual_seed(1)
     mix = torch.rand(8, 16, generator=g)
     table = torch.rand(16, 2048, generator=g).to(torch.bfloat16)
@@ -208,10 +206,10 @@ def test_probe_dense_compare(change, rtol, ok):
     elif change == "sign":
         new[0][3, 5] = 0.0
     if ok:
-        assert probe_dense.compare(new, old, rtol) <= rtol
+        assert chip_smoke.compare(new, old, rtol) <= rtol
     else:
         with pytest.raises(AssertionError):
-            probe_dense.compare(new, old, rtol)
+            chip_smoke.compare(new, old, rtol)
 
 
 class _Event:

@@ -10,17 +10,19 @@ searchbench/judge.py: scores within 1e-5 of the best, ranks, and `found`
 exact. Cases: a dense row for every term at the threshold against a budget
 of a few rows, the fast guard on and off, and a guard trip forced in every
 launch, rescued on the host or relaunched exactly. The comparison fails a
-planted fault; the tracer's counters equal the index's attributes and the
-shortcut's answers; after Engine.warmup the traffic takes no shape past a
-pin and captures no launch graph; a tripped query of one df-head term and
-a few rare ones is answered from the row top-k table as the oracle
-answers it.
+planted fault. The guard's own cases (counters, head answers, no escape
+after warm-up) are in test_torch_msmarco_guard.py, which takes this
+file's corpus, engines and traffic.
+
+Each served configuration is built and warmed once a module (`engines`)
+and handed to each test that asks for it as a fresh one (`served`).
 """
 
 from __future__ import annotations
 
 import json
 import threading
+from collections import OrderedDict
 from dataclasses import replace
 from pathlib import Path
 
@@ -29,15 +31,13 @@ import pytest
 
 from nextsearch_tpu_torch.api import server as server_mod
 from nextsearch_tpu_torch.api.batching import SearchBatcher
-from nextsearch_tpu_torch.index.oracle import oracle_search_vec
 from nextsearch_tpu_torch.index.segment import TorchIndex
 from nextsearch_tpu_torch.ops import graphs
-from nextsearch_tpu_torch.utils.profiling import GLOBAL_TRACER
 from searchbench import judge
 from searchbench.corpus import generate
 from searchbench.reference import Bm25Reference
 from searchbench.run import segment_arrays, serve, stop_flushers
-from searchbench.traffic import distinct_stream, query_text
+from searchbench.traffic import distinct_stream
 
 from test_torch_graphs import FakeGraphs
 
@@ -66,22 +66,19 @@ def heavy_terms(corpus) -> int:
     return int((corpus.term_df >= N_SLOTS // 256).sum())
 
 
-@pytest.fixture()
-def served(corpus, tmp_path, monkeypatch):
-    """serve(**case): the harness's Engine over the corpus in the server's
-    sparse configuration with a dense-row budget of `rows` rows (None: one
-    for every term at the threshold), the fast guard `fast` with eps
-    `eps`, and NEXTSEARCH_TRIP_RESCUE `rescue`; yields (engine, batcher)
-    and stops both."""
-    made = []
-
-    def make(rows=None, fast=True, eps=None, rescue=None):
-        rows = heavy_terms(corpus) if rows is None else rows
-        cfg = dict(CFG, env={"NEXTSEARCH_DENSE_BYTES": rows * 4 * N_SLOTS})
-        for key in cfg["env"]:
-            monkeypatch.setenv(key, "0")  # restored after the test
-        if rescue is not None:
-            monkeypatch.setenv("NEXTSEARCH_TRIP_RESCUE", str(rescue))
+def _build(corpus, work, rows, fast, eps, rescue, fake_graphs):
+    """The harness's Engine over the corpus, served and warmed in `work`
+    under its configuration (served); returns (engine, batcher, the
+    environment it was served under, its graph backend)."""
+    rows = heavy_terms(corpus) if rows is None else rows
+    cfg = dict(CFG, env={"NEXTSEARCH_DENSE_BYTES": rows * 4 * N_SLOTS})
+    env = {key: str(value) for key, value in cfg["env"].items()}
+    if rescue is not None:
+        env["NEXTSEARCH_TRIP_RESCUE"] = str(rescue)
+    backend = FakeGraphs() if fake_graphs else None
+    with pytest.MonkeyPatch.context() as mp:  # undone after the build
+        for key, value in env.items():
+            mp.setenv(key, value)
         real = server_mod.serving_config
 
         def config(mode):
@@ -91,19 +88,63 @@ def served(corpus, tmp_path, monkeypatch):
                 dev = replace(dev, fast_heavy_eps=eps)
             return replace(c, device=dev)
 
-        monkeypatch.setattr(server_mod, "serving_config", config)
-        work = tmp_path / f"serve{len(made)}"
-        work.mkdir()
+        mp.setattr(server_mod, "serving_config", config)
+        if fake_graphs:
+            mp.setattr(graphs, "CPU_BACKEND", backend)
         engine, config_used, _s = serve(cfg, segment_arrays(corpus), work,
                                         "cpu")
-        batcher = SearchBatcher(engine, config_used.batching)
-        made.append((engine, batcher))
+    assert len(engine.cache) == 0  # warm-up searches the index directly
+    batcher = SearchBatcher(engine, config_used.batching)
+    return engine, batcher, env, backend
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """{configuration: what _build returns}, each built by served on its
+    first use in the module; all are stopped at the module's end. The
+    engines' flush threads are stopped at once: stop_flushers joins every
+    flush thread in the process, and would wait out its timeout (10 s) on
+    each thread of an engine not yet stopped."""
+    made = {}
+    yield made
+    for _engine, batcher, _env, _backend in made.values():
+        batcher.shutdown()
+    stops = [threading.Thread(target=stop_flushers, args=(engine,))
+             for engine, *_ in made.values()]
+    for t in stops:
+        t.start()
+    for t in stops:
+        t.join()
+
+
+@pytest.fixture()
+def served(engines, corpus, tmp_path_factory, monkeypatch):
+    """serve(**case): the harness's Engine over the corpus in the server's
+    sparse configuration with a dense-row budget of `rows` rows (None: one
+    for every term at the threshold), the fast guard `fast` with eps
+    `eps`, NEXTSEARCH_TRIP_RESCUE `rescue` and, with `fake_graphs`,
+    test_torch_graphs' stand-in graph backend in place from its warm-up;
+    returns (engine, batcher). Each configuration is built once a module;
+    a test gets it as a fresh one: under the environment it was served
+    under, with an empty result cache and the rescue memo as its warm-up
+    left it, all restored after the test."""
+
+    def make(rows=None, fast=True, eps=None, rescue=None, fake_graphs=False):
+        key = (rows, fast, eps, rescue, fake_graphs)
+        if key not in engines:
+            engines[key] = _build(corpus, tmp_path_factory.mktemp("serve"),
+                                  *key)
+        engine, batcher, env, backend = engines[key]
+        for name, value in env.items():
+            monkeypatch.setenv(name, value)
+        if fake_graphs:
+            monkeypatch.setattr(graphs, "CPU_BACKEND", backend)
+        monkeypatch.setattr(engine.cache, "_data", OrderedDict())
+        index = engine.index
+        monkeypatch.setattr(index, "_rescue_memo", dict(index._rescue_memo))
         return engine, batcher
 
-    yield make
-    for engine, batcher in made:
-        batcher.shutdown()
-        stop_flushers(engine)
+    return make
 
 
 def traffic(n, seed=1):
@@ -173,142 +214,3 @@ def test_shifted_doc_slots_fail_the_comparison(served, reference,
     numbers = judge.judge(items, reference, CFG["k"])
     assert not judge.verdict(numbers), numbers
     assert numbers["rank_err"] > judge.LIMITS["rank_err"]
-
-
-class MemoHits(dict):
-    """The rescue memo, counting the answers it gives."""
-
-    hits = 0
-
-    def get(self, key, default=None):
-        res = super().get(key, default)
-        self.hits += res is not None
-        return res
-
-
-@pytest.mark.parametrize("case", ["trip_rescued", "trip_relaunched"])
-def test_counters_equal_attributes_and_shortcut_answers(served, case):
-    """index.rescued and index.relaunches equal rescue_trips and
-    relaunches; index.shortcut_answers the 1-term shortcut's answers;
-    index.queries_launched the rest of the launched batches but those the
-    rescue memo answers; every
-    launched query's guard trips here (eps 1e30), and index.guard_trips
-    counts them."""
-    engine, batcher = served(**CASES[case])
-    index = engine.index
-    answered = []
-    real = index._shortcut_single_heavy
-
-    def counting(queries, k):
-        out, fills = real(queries, k)
-        answered.append(len(fills or ()))
-        return out, fills
-
-    index._shortcut_single_heavy = counting
-    index._rescue_memo = MemoHits(index._rescue_memo)
-    before = dict(GLOBAL_TRACER.report()["counters"])
-    attrs = (index.rescue_trips, index.relaunches)
-    send(batcher, traffic(N_BATCHES * BATCH, seed=3))
-    after = GLOBAL_TRACER.report()["counters"]
-
-    def delta(name):
-        return after.get(name, 0) - before.get(name, 0)
-
-    assert delta("index.rescued") == index.rescue_trips - attrs[0]
-    assert delta("index.relaunches") == index.relaunches - attrs[1]
-    assert delta("index.shortcut_answers") == sum(answered) > 0
-    launched = delta("index.queries_launched")
-    assert launched == (N_BATCHES * BATCH - sum(answered)
-                        - index._rescue_memo.hits)
-    assert 0 < delta("index.guard_trips") <= launched
-    if case == "trip_rescued":
-        assert delta("index.guard_trips") == delta("index.rescued") > 0
-        assert delta("index.relaunches") == 0
-    else:
-        assert delta("index.relaunches") == N_BATCHES
-        assert delta("index.rescued") == 0
-
-
-def test_no_escape_and_no_capture_after_warmup(served, monkeypatch):
-    """Engine.warmup pins and captures the envelopes that this traffic
-    plans in (questions of up to 6 terms): 20 more batches of it take no
-    shape past a pin and capture no launch graph."""
-    monkeypatch.setattr(graphs, "CPU_BACKEND", FakeGraphs())
-    engine, batcher = served()
-    cache = engine.index.launch_cache
-    assert cache.captures > 0
-    captures = cache.captures
-    escapes = GLOBAL_TRACER.report()["counters"].get("planner.escapes", 0)
-    send(batcher, traffic(20 * BATCH, seed=4))
-    assert cache.replays > 0
-    assert cache.captures == captures
-    assert GLOBAL_TRACER.report()["counters"].get(
-        "planner.escapes", 0) == escapes
-
-
-def test_head_answers_equal_the_oracle(served, corpus):
-    """_head_answer (the guard's rescue of a df-head term beside rare
-    terms) gives the oracle's hits and found bit for bit, wherever the
-    head term sits in the query, and declines other query forms."""
-    engine, _b = served()
-    index = engine.index
-    df = corpus.term_df
-    name = "t{:07d}".format
-    heads = [name(int(t)) for t in np.argsort(-df, kind="stable")[:3]]
-    rare = [name(int(t)) for t in np.flatnonzero((df >= 1) & (df <= 4))]
-    rng = np.random.default_rng(5)
-    answered = 0
-    for _ in range(40):
-        head = heads[int(rng.integers(len(heads)))]
-        others = list(rng.choice(rare, size=int(rng.integers(1, 4)),
-                                 replace=False))
-        terms = others[:1] + [head] + others[1:]
-        q = [(t, 1.0) for t in terms]
-        for K in (10, 32):
-            got = index._head_answer(q, K)
-            want = oracle_search_vec(index._oracle_segs(), q, K)
-            assert got is not None
-            assert got == want, (terms, K)
-            answered += 1
-    assert answered == 80
-    # other forms go to the oracle or a relaunch
-    assert index._head_answer([(heads[0], 1.0), (heads[1], 1.0)], 10) is None
-    assert index._head_answer([(rare[0], 1.0), (rare[1], 1.0)], 10) is None
-    assert index._head_answer([(heads[0], 2.0), (rare[0], 1.0)], 10) is None
-    assert index._head_answer([(heads[0], 1.0), (heads[0], 1.0)], 10) is None
-    # light postings past what the stored head prefix can hold
-    light = [name(int(t)) for t in np.flatnonzero((df >= 60) & (df < 80))]
-    assert index._head_answer([(heads[0], 1.0)] + [
-        (t, 1.0) for t in light[:2]], 10) is None
-
-
-@pytest.mark.parametrize("other", [False, True])
-def test_head_answers_outside_the_rescue_cap(served, reference, corpus,
-                                             other):
-    """NEXTSEARCH_TRIP_RESCUE bounds the host oracle's rescues only: at 0,
-    a batch whose tripped queries are all of the df-head form is answered
-    from the row top-k table, with no relaunch; one tripped query of
-    another form relaunches its batch. Every answer equals plain BM25."""
-    engine, batcher = served(eps=1e30, rescue=0)
-    index = engine.index
-    df = corpus.term_df
-    heads = [int(t) for t in np.argsort(-df, kind="stable")[:3]]
-    rare = np.flatnonzero((df >= 1) & (df <= 4))
-    rng = np.random.default_rng(6)
-    batch = [[heads[i % 3]] + sorted(int(t) for t in rng.choice(
-        rare, size=2, replace=False)) for i in range(48)]
-    if other:
-        batch.append(heads[:2])
-    queries = [(np.array(t), query_text(np.array(t))) for t in batch]
-    attrs = (index.rescue_trips, index.relaunches)
-    res = batcher.search_many([(text, CFG["k"]) for _t, text in queries])
-    items = [(t, text, r) for (t, text), r in zip(queries, res)]
-    numbers = judge.judge(items, reference, CFG["k"])
-    assert numbers["judged"] == len(batch)
-    assert judge.verdict(numbers), numbers
-    if other:
-        assert index.relaunches == attrs[1] + 1
-        assert index.rescue_trips == attrs[0]
-    else:
-        assert index.relaunches == attrs[1]
-        assert index.rescue_trips == attrs[0] + len(batch)

@@ -8,7 +8,9 @@ times n_slots past 2^31, and that every CUDA entry point and kernel takes
 its doc-slot and element counts as 64-bit integers, with matching ctypes
 signatures. The CUDA kernels' own offsets (K1, K2, K3, the exact full-table
 relaunch) are checked on the card, by the benchmark's comparison with the
-plain reference at that size.
+plain reference at that size. The same reading of the source holds every
+entry point's ctypes signature to its C parameter types, and every kernel
+to a launch site: no kernel is left in the library that nothing launches.
 """
 
 from __future__ import annotations
@@ -119,3 +121,27 @@ def test_entry_points_take_wide_counts_as_64_bit(entry):
         elif typ == "long long":
             assert ctype is ctypes.c_longlong, (entry, name)
 
+
+def _ctype(typ):
+    """The ctypes type that passes a C parameter of type `typ`."""
+    if typ.endswith("*"):
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong}[typ]
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_entry_point_signatures_match_the_c_types(entry):
+    """Each C entry point's ctypes signature passes each parameter as its
+    C type: pointers as c_void_p, int as c_int, long long as c_longlong."""
+    want = [_ctype(typ) for typ, _name in ENTRIES[entry]]
+    assert cuda_build._SIGNATURES[entry] == want
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_every_kernel_has_a_launch_site(kernel):
+    """Each kernel is launched in the library: by name, with or without
+    template arguments, before <<<, or taken as the function an entry point
+    launches (auto kernel = name<...>)."""
+    launched = re.search(rf"\b{kernel}\s*(<[^;{{}}()]*>)?\s*<<<", SRC)
+    taken = re.search(rf"auto kernel = {kernel}\s*(<[^;]*>)?\s*;", SRC)
+    assert launched or taken, kernel

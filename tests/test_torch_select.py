@@ -115,19 +115,15 @@ def test_per_query_topk_rejects_bad_arguments():
 
 def test_per_query_topk_caps_k2():
     """k2 up to K2_MAX (at least the TPU kernel's 128) runs; above it the
-    wrapper raises ValueError on every device, whichever kernel is asked
-    for. On CPU tensors first=True is the plain version too."""
+    wrapper raises ValueError on every device."""
     assert sk.K2_MAX >= 128
     s, b = torch.tensor([0.5, 2.0, 0.0, 2.0] * 2), torch.tensor([0, 8])
     v, g = sk.per_query_topk(s, b, sk.K2_MAX)
     assert v.shape == g.shape == (1, sk.K2_MAX)
     assert v[0, :5].tolist() == [2.0] * 4 + [0.5]
     assert g[0, :5].tolist() == [1, 3, 5, 7, 0] and not v[0, 6:].any()
-    fv, fg = sk.per_query_topk(s, b, sk.K2_MAX, first=True)
-    assert torch.equal(fv, v) and torch.equal(fg, g)
-    for first in (False, True):
-        with pytest.raises(ValueError):
-            sk.per_query_topk(s, b, sk.K2_MAX + 1, first=first)
+    with pytest.raises(ValueError):
+        sk.per_query_topk(s, b, sk.K2_MAX + 1)
     assert sk.per_query_topk.launches == 0
 
 
